@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared
+library with a plain C interface, for Hopper (``sm_90a``), at first use.
+The library lands in ``build/redux_tpu_torch/`` beside the package, named
+by a hash of the sources and flags, so an edited source rebuilds.  It is
+loaded with ``ctypes``: every pointer and the stream pass as ``c_void_p``,
+ints as ``c_int``, and every C entry returns ``cudaGetLastError()``, on
+which :func:`check` raises.  A failed build or launch raises; nothing
+falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "redux_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: name -> argument types (all return int = cudaError_t).
+SIGNATURES = {
+    # syms, lens, init_cum, lo, hi, B, K, delta, freq_max, device, stream
+    "rxt_model_lohi": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # lo, hi, lens, words, byte_lens, ovf, B, K, n_words, init_total,
+    # tfreeze, delta, code_bits, device, stream
+    "rxt_encode_blocks": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # words, lens, init_cum, out, B, W, k, delta, freq_max, code_bits,
+    # device, stream
+    "rxt_decode_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler (``$CUDA_HOME/bin/nvcc``, else ``PATH``)."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def nvcc_version() -> str:
+    out = subprocess.run([nvcc(), "--version"], check=True, capture_output=True, text=True)
+    return out.stdout.strip().splitlines()[-1]
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libredux_kernels_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out = library_path()
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            handle.rxt_error_string.argtypes = [ctypes.c_int]
+            handle.rxt_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if err != 0:
+        msg = lib().rxt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_of(device: torch.device) -> int:
+    """Handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

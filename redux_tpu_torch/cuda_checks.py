@@ -1,0 +1,173 @@
+"""On-card checks of the kernels: each against its plain PyTorch version,
+and the port against the golden archives.
+
+Used by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.  Every check
+compares integers exactly (tolerance 0: the bar is byte equality) and
+raises AssertionError on any difference.  Times come from CUDA events.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import pathlib
+
+import torch
+
+from . import api
+from .convert import init_cum_from_numpy
+from .ops.decode import decode_blocks, decode_blocks_plain
+from .ops.encode import encode_blocks, encode_blocks_plain
+from .ops.model import model_lohi, model_lohi_plain
+from .params import Parameters
+from .testdata import golden_input, incompressible, text_like
+
+KERNELS = {
+    "model_values": ("redux_tpu_torch/csrc/model_values.cu", "redux_tpu/ops/pallas_model.py:63"),
+    "encode": ("redux_tpu_torch/csrc/encode.cu", "redux_tpu/ops/pallas_encode.py:86"),
+    "decode": ("redux_tpu_torch/csrc/decode.cu", "redux_tpu/ops/pallas_decode.py:109"),
+}
+K = 4096  # block size of the phase-3 checks: the main path's auto size at 64 MiB
+SEED = 7
+
+
+def _require(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class KernelInputs:
+    """What the main path hands the kernels for ``data``: its blocks, the
+    initial row (with the warm-start prior) and the word capacity."""
+
+    def __init__(self, data: bytes, params: Parameters, delta: int, block_size: int,
+                 device: torch.device):
+        ic = api._init_cum(params, api._prior_extra(data, params, api.DEFAULT_PRIOR_BUDGET))
+        syms, lens, _ = api._split_blocks(data, block_size)
+        self.params, self.delta, self.k = params, delta, block_size
+        self.syms = torch.from_numpy(syms).to(device)
+        self.lens = torch.from_numpy(lens).to(device)
+        self.init_cum = init_cum_from_numpy(ic, params, device)
+        self.init_total = int(ic[-1])
+        self.n_words = api._encode_words(params, block_size, delta)
+
+
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> dict:
+    """Run K1, K2 and K3 and their plain versions on ``x``; assert exact
+    equality; return per kernel ``max_abs_err``, ``ms`` and ``plain_ms``.
+
+    K3 decodes K2's streams as the main path stages them: blocks stored
+    raw (ovf, or not smaller than raw) get no symbols, the rest must come
+    back as their input bytes.
+    """
+    p, d = x.params, x.delta
+    out = {}
+    valid = torch.arange(x.k, device=x.syms.device)[None, :] < x.lens[:, None]
+
+    lo, hi = model_lohi(x.syms, x.lens, x.init_cum, p, d)
+    lo_p, hi_p = model_lohi_plain(x.syms, x.lens, x.init_cum, p, d)
+    err = max(_max_abs(lo[valid], lo_p[valid]), _max_abs(hi[valid], hi_p[valid]))
+    _require(err == 0, f"model_values differs from its plain version (max |diff| {err})")
+    out["model_values"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: model_lohi(x.syms, x.lens, x.init_cum, p, d), reps),
+        "plain_ms": cuda_ms(lambda: model_lohi_plain(x.syms, x.lens, x.init_cum, p, d), 1, 0)
+        if time_plain else None,
+    }
+
+    enc = (lo, hi, x.lens, x.init_total, p, x.n_words, d)
+    words, bl, ovf = encode_blocks(*enc)
+    words_p, bl_p, ovf_p = encode_blocks_plain(*enc)
+    wvalid = torch.arange(x.n_words, device=words.device)[None, :] * 4 < bl[:, None]
+    err = max(_max_abs(bl, bl_p), _max_abs(ovf, ovf_p), _max_abs(words[wvalid], words_p[wvalid]))
+    _require(err == 0, f"encode differs from its plain version (max |diff| {err})")
+    out["encode"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: encode_blocks(*enc), reps),
+        "plain_ms": cuda_ms(lambda: encode_blocks_plain(*enc), 1, 0) if time_plain else None,
+    }
+
+    raw = ovf | (bl >= x.lens)
+    klens = torch.where(raw, 0, x.lens).to(torch.int32)
+    coded_max = int(torch.where(raw, 0, bl).max())
+    wcap = min(max(4, -(-coded_max // 4) + 2), x.n_words + 2)
+    # The coder leaves zeros past each stream; two zero words follow the longest.
+    staged = torch.nn.functional.pad(words, (0, 2))[:, :wcap].contiguous()
+    dec = (staged, klens, x.init_cum, p, x.k, d)
+    syms = decode_blocks(*dec)
+    syms_p = decode_blocks_plain(*dec)
+    err = _max_abs(syms, syms_p)
+    _require(err == 0, f"decode differs from its plain version (max |diff| {err})")
+    coded = ~raw
+    _require(torch.equal(torch.where(valid[coded], syms[coded], 0),
+                         torch.where(valid[coded], x.syms[coded], 0)), "decode lost the input")
+    out["decode"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: decode_blocks(*dec), reps),
+        "plain_ms": cuda_ms(lambda: decode_blocks_plain(*dec), 1, 0) if time_plain else None,
+    }
+    out["raw_blocks"] = int(raw.sum())
+    return out
+
+
+def phase3_data(n_blocks: int, k: int, seed: int) -> bytes:
+    """Skewed text-like blocks, every 32nd block incompressible, and a short
+    last block."""
+    data = bytearray(text_like(n_blocks * k, seed))
+    for b in range(5, n_blocks, 32):
+        data[b * k : (b + 1) * k] = incompressible(k, seed + b)
+    return bytes(data[: n_blocks * k - k // 3])
+
+
+def check_kernels(device: torch.device, n_blocks: int = 1024) -> dict:
+    """Phase 3: the kernels against their plain versions at tpu_wide,
+    delta 16 with the prior; at tpu32 with the freeze engaged; and at the
+    reference CLI's (8,30,32)."""
+    data = phase3_data(n_blocks, K, SEED)
+    wide = KernelInputs(data, Parameters.tpu_wide(), 16, K, device)
+    res = {"tpu_wide": compare_kernels(wide)}
+    small = KernelInputs(data[: (n_blocks // 4) * K], Parameters.tpu32(), 16, K, device)
+    _require(small.init_total + 16 * K > small.params.freq_max, "tpu32 case must freeze")
+    res["tpu32_freeze"] = compare_kernels(small, time_plain=False, reps=1)
+    # The reference CLI's (8,30,32): 32-bit code values, 62-bit products.
+    cli = KernelInputs(data[: 64 * 1024], Parameters.default(), 7, 1024, device)
+    res["default_8_30_32"] = compare_kernels(cli, time_plain=False, reps=1)
+    return res
+
+
+def check_goldens(device: torch.device, golden_dir: pathlib.Path) -> list:
+    """Phase 4: encode each golden's input on the card and compare with the
+    stored archive byte for byte; decode each stored archive on the card."""
+    results = []
+    for entry in json.loads((golden_dir / "manifest.json").read_text()):
+        data = golden_input(entry["kind"], entry["n"], entry["seed"])
+        _require(hashlib.sha256(data).hexdigest() == entry["input_sha256"],
+                 f"{entry['file']}: generated input differs from the manifest")
+        stored = (golden_dir / entry["file"]).read_bytes()
+        mine = api.encode(data, params=Parameters(*entry["params"]), delta=entry["delta"],
+                          device=device)
+        _require(mine == stored, f"{entry['file']}: encode differs from the golden archive")
+        _require(api.decode(stored, device=device) == data, f"{entry['file']}: decode differs")
+        results.append((entry["file"], len(data), len(stored)))
+    return results
