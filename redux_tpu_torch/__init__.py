@@ -7,8 +7,11 @@ and each package decodes the other's archives.  It imports torch and
 numpy, never JAX.
 
 ``encode(data, device=...)`` / ``decode(archive, device=...)``: a CUDA
-device runs the kernels (K1 model values, K2 coder, K3 decoder); a CPU
-device runs their plain PyTorch versions.
+device runs the kernels (K1 model values, K2 coder, K3 decoder, or K4, the
+fused model + coder, under ``REDUX_TPU_ENC_FUSED=1``); a CPU device runs
+their plain PyTorch versions; a list of devices shards the blocks over
+them (``redux_tpu_torch.parallel``).  K5 (``ops.encode_m``) is the
+independent model-in-kernel encoder, as in the reference.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from .api import decode, encode
 from .errors import EofError, InvalidInputError, ReduxError, ReduxIOError
 from .ops import decode as _decode_op
 from .ops import encode as _encode_op
+from .ops import encode_m as _encode_m_op
 from .ops import model as _model_op
 from .params import Parameters
 
@@ -32,6 +36,8 @@ def launch_counts() -> dict:
         "model_values": _model_op.launches,
         "encode": _encode_op.launches,
         "decode": _decode_op.launches,
+        "encode_fused": _encode_op.fused_launches,
+        "encode_m": _encode_m_op.launches,
     }
 
 
@@ -39,3 +45,5 @@ def reset_launch_counts() -> None:
     _model_op.launches = 0
     _encode_op.launches = 0
     _decode_op.launches = 0
+    _encode_op.fused_launches = 0
+    _encode_m_op.launches = 0

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared
-library with a plain C interface, for Hopper (``sm_90a``), at first use.
+At first use ``nvcc`` compiles every ``csrc/*.cu`` of the package for
+Hopper (``sm_90a``), one process a source, all started together, and
+links the objects into one shared library with a plain C interface.
 The library lands in ``build/redux_tpu_torch/`` beside the package, named
 by a hash of the sources and flags, so an edited source rebuilds.  It is
 loaded with ``ctypes``: every pointer and the stream pass as ``c_void_p``,
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -24,10 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "redux_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argument types (all return int = cudaError_t).
@@ -40,6 +40,10 @@ SIGNATURES = {
     # words, lens, init_cum, out, B, W, k, delta, freq_max, code_bits,
     # device, stream
     "rxt_decode_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # syms, lens, init_cum, words, byte_lens, ovf, B, K, n_words, delta,
+    # freq_max, code_bits, device, stream (K4 and K5 take the same)
+    "rxt_encode_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "rxt_encode_m": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -86,10 +90,25 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    cc = nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [Path(objdir) / f"{src.stem}.o" for src in _sources()]
+        procs = [
+            subprocess.Popen([cc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(_sources(), objs)
+        ]
+        errors = []
+        for src, proc in zip(_sources(), procs):
+            _, err = proc.communicate()  # waits: no compiler outlives the build
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        link = [cc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     return out
 

@@ -13,14 +13,17 @@ and for decode, the lanes sorted by coded length, the decoder (K3,
 ``ops.decode``), the inverse permutation, the raw splice and the crc.
 
 The device is the caller's choice: ``device="cuda"`` runs the kernels, a
-CPU device their plain PyTorch versions.  The multi-device branches of the
-reference wait for the multi-GPU port.
+CPU device their plain PyTorch versions, and a sequence of two or more
+devices shards the blocks over them (``parallel.mesh``; the explicit
+counterpart of the reference's ``_dp_mesh`` branches, :98-113, :300-316,
+:483-510).  ``parallel.data_parallel_mesh()`` names every visible GPU.
+The archive bytes do not depend on the devices.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -33,6 +36,8 @@ from .models.dense import prior_init_cum, quantize_prior, uniform_init_cum
 from .ops.coder import bytes_to_words, max_block_words, words_to_bytes
 from .ops.decode import decode_blocks
 from .ops.encode import encode_blocks_ranked
+from .parallel.mesh import (Mesh, data_parallel_mesh, decode_blocks_sharded,
+                            encode_blocks_ranked_sharded)
 from .params import Parameters
 
 # Default decode lane quantum of the reference (its LANES x PHASES = 1024 x 1):
@@ -123,6 +128,20 @@ def _check_config(params: Parameters, block_size: int, delta: int, init_total: i
         raise InvalidInputError()
 
 
+Devices = Union[torch.device, str, Sequence[Union[torch.device, str]]]
+
+
+def _placement(device: Devices) -> tuple[torch.device, Optional[Mesh]]:
+    """Where the tensors live and, for two or more devices, the mesh to
+    shard over (the tensors then stay on the host)."""
+    if isinstance(device, (torch.device, str)):
+        return torch.device(device), None
+    mesh = data_parallel_mesh(device)
+    if len(mesh) == 1:
+        return mesh[0], None
+    return torch.device("cpu"), mesh
+
+
 class _Clock:
     """Host wall time per phase into ``timings`` (seconds, accumulated)."""
 
@@ -144,7 +163,7 @@ def encode(
     use_prior: Optional[bool] = None,
     prior_budget: int = DEFAULT_PRIOR_BUDGET,
     *,
-    device: torch.device | str = "cpu",
+    device: Devices = "cpu",
     lane_quantum: int = LANE_QUANTUM,
     _timings: Optional[dict] = None,
 ) -> bytes:
@@ -154,10 +173,11 @@ def encode(
     128k-count warm-start prior for inputs of 4096 bytes or more, and
     4 KiB blocks, auto-sized for inputs >= 2 MiB (see
     :func:`_auto_block_size`).  ``device`` runs the kernels (CUDA) or their
-    plain versions (CPU).
+    plain versions (CPU); a sequence of devices shards the blocks over
+    them.
     """
     clock = _Clock(_timings)
-    device = torch.device(device)
+    device, mesh = _placement(device)
     params = params or Parameters.tpu_wide()
     if block_size is None:
         block_size = (
@@ -191,7 +211,11 @@ def encode(
         s1 = min(s0 + chunk, n_blocks)
         syms_t = torch.from_numpy(syms[s0:s1]).to(device)
         lens_t = torch.from_numpy(lens[s0:s1]).to(device)
-        words, bl, ov = encode_blocks_ranked(syms_t, lens_t, ic_t, params, n_words, delta)
+        if mesh is None:
+            words, bl, ov = encode_blocks_ranked(syms_t, lens_t, ic_t, params, n_words, delta)
+        else:
+            words, bl, ov = encode_blocks_ranked_sharded(
+                syms_t, lens_t, ic_t, params, n_words, mesh, delta)
         bl_i = bl.cpu().numpy()
         ov_i = ov.cpu().numpy()
         wcap = min(max(1, -(-int(bl_i.max(initial=1)) // 4)), n_words)
@@ -237,16 +261,17 @@ def encode(
     return out
 
 
-def decode(archive: bytes, *, device: torch.device | str = "cpu",
+def decode(archive: bytes, *, device: Devices = "cpu",
            _timings: Optional[dict] = None) -> bytes:
     """Decompress an RXT archive.
 
     Verifies the stored crc32 and raises :class:`InvalidInputError` on any
     corruption instead of returning garbage.  ``device`` runs the kernel
-    (CUDA) or its plain version (CPU).
+    (CUDA) or its plain version (CPU); a sequence of devices shards the
+    blocks over them.
     """
     clock = _Clock(_timings)
-    device = torch.device(device)
+    device, mesh = _placement(device)
     header, _ = container.parse_archive(archive, with_streams=False)
     params = header.params
     if header.orig_len == 0:
@@ -292,7 +317,11 @@ def decode(archive: bytes, *, device: torch.device | str = "cpu",
         byts[np.arange(wcap * 4, dtype=np.int32)[None, :] < lens_o[:, None]] = cat
         words = bytes_to_words(torch.from_numpy(byts).to(device))
         klens = torch.from_numpy(sym_lens[sel].astype(np.int32)).to(device)
-        syms_u8[s0:s1] = decode_blocks(words, klens, ic_t, params, k, header.delta).cpu().numpy()
+        if mesh is None:
+            out = decode_blocks(words, klens, ic_t, params, k, header.delta)
+        else:
+            out = decode_blocks_sharded(words, klens, ic_t, params, k, mesh, header.delta)
+        syms_u8[s0:s1] = out.cpu().numpy()
     clock.mark("stage+kernel+fetch")
 
     inv = np.empty(n_blocks, dtype=np.int64)

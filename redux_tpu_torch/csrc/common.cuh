@@ -1,5 +1,6 @@
-// Shared pieces of the port's kernels: the warp-held cumulative model row
-// and the closed-form interval renormalisation.
+// Shared pieces of the port's kernels: the warp-held cumulative model row,
+// the closed-form interval renormalisation, and the v2 coder step with its
+// bit emission (K2, K4 and K5 all code and emit through Coder below).
 //
 // Model row: one block's 258-entry cumulative row (257 symbols + total)
 // lives in the registers of one warp, entry i in register i / 32 of lane
@@ -67,6 +68,114 @@ __device__ __forceinline__ Renorm renorm(uint64_t& low, uint64_t& high, int cb) 
   low = (low1 << n3) & (cmax >> 1);
   high = (((high1 << n3) | ((1ull << n3) - 1)) & (cmax >> 1)) | (1ull << (cb - 1));
   return {n1, n3};
+}
+
+// MSB-first bit packer into one block's row of big-endian u32 words.  Words
+// past cap are counted but not stored; a writer with cap 0 stores nothing
+// (the other lanes of a warp that codes warp-uniformly).
+struct BitWriter {
+  uint32_t* out;
+  int cap;
+  uint64_t acc = 0;  // accbits (< 32) pending bits, right-aligned
+  int accbits = 0;
+  int nw = 0;        // words produced, including any past cap
+
+  __device__ __forceinline__ void put(uint64_t v, int n) {  // n <= 32, v < 2^n
+    acc = (acc << n) | v;
+    accbits += n;
+    if (accbits >= 32) {
+      accbits -= 32;
+      if (nw < cap) out[nw] = static_cast<uint32_t>(acc >> accbits);
+      ++nw;
+      acc &= (1ull << accbits) - 1;
+    }
+  }
+
+  __device__ __forceinline__ void put64(uint64_t v, int n) {  // n <= 64, v < 2^n
+    if (n > 32) {
+      put(v >> 32, n - 32);
+      put(v & 0xFFFFFFFFull, 32);
+    } else {
+      put(v, n);
+    }
+  }
+};
+
+// Appends [lead][pending x !lead][rest (rest_len bits)].  Past 64 bits the
+// piece is what the reference's 64-bit piece holds: its low 64 bits with the
+// run cut to 63 and the lead bit at position 63 (so the top bit is
+// lead | (rest_len >= 1)), and ovf is set.
+__device__ __forceinline__ void emit(BitWriter& wr, bool& ovf, uint32_t lead,
+                                     uint32_t pending, uint64_t rest, int rest_len) {
+  uint32_t first = lead, run = pending;
+  if (static_cast<uint64_t>(rest_len) + 1 + pending > 64) {
+    ovf = true;
+    first = lead | (rest_len >= 1 ? 1u : 0u);
+    run = 63 - rest_len;
+  }
+  const uint64_t opp = lead ? 0 : ((1ull << run) - 1);  // run <= 63
+  const uint64_t piece =
+      (static_cast<uint64_t>(first) << (run + rest_len)) | (opp << rest_len) | rest;
+  wr.put64(piece, 1 + run + rest_len);
+}
+
+// The v2 interval coder of one block.  Per coded symbol, step() narrows by
+// (flo, fhi) over count, renormalises in closed form and emits
+// [b1][pending opposite bits][n1-1 prefix bits]; terminate() emits the 2-bit
+// v2 terminator tq = (low + quarter - 1) >> (cb - 2); finish() writes the
+// byte length (every bit, even past the row's capacity), ovf, the tail word
+// and zeros past the stream.
+struct Coder {
+  BitWriter wr;
+  int cb;
+  uint64_t low = 0, high;
+  uint32_t pending = 0;
+  bool ovf = false;
+
+  __device__ Coder(uint32_t* out, int cap, int code_bits)
+      : wr{out, cap}, cb(code_bits), high((1ull << code_bits) - 1) {}
+
+  __device__ __forceinline__ void step(uint64_t flo, uint64_t fhi, uint64_t count) {
+    const uint64_t range = high - low + 1;
+    const uint64_t nlow = low + range * flo / count;
+    high = low + range * fhi / count - 1;
+    low = nlow;
+    const uint64_t narrowed = low;
+    const Renorm rn = renorm(low, high, cb);
+    if (rn.n1 > 0) {
+      const uint64_t prefix = narrowed >> (cb - rn.n1);
+      const int rest_len = rn.n1 - 1;
+      emit(wr, ovf, static_cast<uint32_t>(prefix >> rest_len), pending,
+           prefix & ((1ull << rest_len) - 1), rest_len);
+      pending = 0;
+    }
+    pending += rn.n3;
+  }
+
+  __device__ __forceinline__ void terminate() {
+    const uint64_t tq = (low + (1ull << (cb - 2)) - 1) >> (cb - 2);
+    emit(wr, ovf, static_cast<uint32_t>(tq >> 1), pending, tq & 1, 1);
+  }
+
+  // Lane `lane` of `nlanes` lanes that carry this same state: lane 0 writes
+  // the scalars and the tail word, all lanes share the zero fill.
+  __device__ __forceinline__ void finish(uint32_t* row, int n_words, int32_t* byte_len,
+                                         uint8_t* ovf_out, int lane, int nlanes) {
+    int w = wr.nw;
+    if (lane == 0) {
+      const long long bits = static_cast<long long>(w) * 32 + wr.accbits;
+      *byte_len = static_cast<int32_t>((bits + 7) >> 3);
+      *ovf_out = ovf ? 1 : 0;
+      if (wr.accbits > 0 && w < n_words) row[w] = static_cast<uint32_t>(wr.acc << (32 - wr.accbits));
+    }
+    if (wr.accbits > 0) ++w;
+    for (int i = w + lane; i < n_words; i += nlanes) row[i] = 0;
+  }
+};
+
+// First position whose update is frozen: max(ceil((freq_max - init_total) / delta), 0).
+__device__ __forceinline__ int freeze_point(int init_total, int freq_max, int delta) {
+  return freq_max > init_total ? (freq_max - init_total + delta - 1) / delta : 0;
 }
 
 }  // namespace rxt

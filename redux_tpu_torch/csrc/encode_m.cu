@@ -1,0 +1,101 @@
+// K5: the model-in-kernel encoder, an independent derivation of K2's streams.
+//
+// Replaces redux_tpu/ops/pallas_encode.py::_encode_kernel_m (step at
+// :609-709, launched by _encode_pallas_m_jit at :823; entries
+// encode_blocks_pallas_m and parallel/mesh.py::encode_blocks_pallas_m_sharded).
+// Per block b and position t < lens[b]:
+//   flo = cdf[v], fhi = cdf[v+1]   (v = syms[b,t], before the update)
+//   count = tot (the running total, before the update)
+//   while tot < freq_max: freq[v] += delta, tot += delta   (the freeze at :629;
+//   tot overshoots to at most freq_max + delta - 1, within int32)
+//   code (flo, fhi) over count
+// then the v2 terminator at t == lens[b] (none for lens < 0, a pad lane).
+// Output: K2's triple (words, byte_lens, ovf), bit for bit.
+//
+// Design: one thread per block, kept apart from K1/K4's warp-held row.  The
+// block's 257 symbol frequencies are a Fenwick tree in shared memory, the
+// layout of the reference library's own model (redux_tpu/models/fenwick.py):
+// node i (1-based) holds the frequencies of symbols i - lowbit(i) .. i - 1,
+// so cdf[v] = init_cum[0] + prefix(v).  One walk down the shared path gives
+// both bounds (at most 9 + 9 reads), and +delta on freq[v] is at most 9
+// writes.  Node i of the thread with index x sits at tree[(i - 1) * 32 + x]
+// with 32 threads a CTA, so every access of a warp hits 32 distinct banks
+// whatever the symbols.  The total is a register.  The coder step and the
+// emission are rxt::Coder (common.cuh), shared with K2 and K4.
+// What bounds it: one thread's serial chain a symbol (the dependent shared
+// memory walk, then K2's coder step with two 64-bit divisions); 33 KB of
+// shared memory a CTA of 32 blocks, so up to 6 CTAs an SM and 16384 blocks
+// for 64 MiB all resident at once.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 32;             // blocks per CTA: one bank each
+constexpr int kNodes = rxt::kRow - 1;    // Fenwick nodes 1..257
+
+__device__ __forceinline__ int lowbit(int i) { return i & -i; }
+
+__global__ void encode_m_kernel(const uint8_t* __restrict__ syms,
+                                const int32_t* __restrict__ lens,
+                                const int32_t* __restrict__ init_cum,
+                                uint32_t* __restrict__ words, int32_t* __restrict__ byte_lens,
+                                uint8_t* __restrict__ ovf_out, int B, int K, int n_words,
+                                int delta, int freq_max, int cb) {
+  __shared__ int tree[kNodes * kThreads];
+  const int x = threadIdx.x;
+  const int blk = blockIdx.x * kThreads + x;
+  if (blk >= B) return;  // no barrier below: each thread owns its tree
+  int* node = tree + x;  // node[(i - 1) * kThreads] is node i (1-based)
+  for (int i = 1; i <= kNodes; ++i) {
+    node[(i - 1) * kThreads] = init_cum[i] - init_cum[i - lowbit(i)];
+  }
+  const int base = init_cum[0];
+  int tot = init_cum[kNodes];
+  int len = lens[blk];
+  len = len > K ? K : len;
+  const uint8_t* srow = syms + static_cast<size_t>(blk) * K;
+  uint32_t* row = words + static_cast<size_t>(blk) * n_words;
+  rxt::Coder coder(row, n_words, cb);
+  for (int t = 0; t < len; ++t) {
+    const int v = srow[t];
+    // Shared-path walk: h climbs from v + 1 and l from v until they meet;
+    // below the meeting node both prefixes share the same nodes.
+    int h = v + 1, l = v, sum_h = 0, sum_l = 0;
+    while (h != l) {
+      if (h > l) {
+        sum_h += node[(h - 1) * kThreads];
+        h -= lowbit(h);
+      } else {
+        sum_l += node[(l - 1) * kThreads];
+        l -= lowbit(l);
+      }
+    }
+    int common = base;
+    for (int i = h; i > 0; i -= lowbit(i)) common += node[(i - 1) * kThreads];
+    const int count = tot;
+    if (tot < freq_max) {
+      for (int i = v + 1; i <= kNodes; i += lowbit(i)) node[(i - 1) * kThreads] += delta;
+      tot += delta;
+    }
+    coder.step(static_cast<uint32_t>(common + sum_l), static_cast<uint32_t>(common + sum_h),
+               static_cast<uint32_t>(count));
+  }
+  if (len >= 0) coder.terminate();  // the terminator at t == lens
+  coder.finish(row, n_words, byte_lens + blk, ovf_out + blk, 0, 1);
+}
+
+}  // namespace
+
+RXT_API int rxt_encode_m(const void* syms, const void* lens, const void* init_cum, void* words,
+                         void* byte_lens, void* ovf, int B, int K, int n_words, int delta,
+                         int freq_max, int code_bits, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int grid = (B + kThreads - 1) / kThreads;
+  encode_m_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(syms), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(init_cum), static_cast<uint32_t*>(words),
+      static_cast<int32_t*>(byte_lens), static_cast<uint8_t*>(ovf), B, K, n_words, delta,
+      freq_max, code_bits);
+  return cudaGetLastError();
+}

@@ -33,7 +33,7 @@ __global__ void model_values_kernel(const uint8_t* __restrict__ syms,
   int r[rxt::kRegs];
   rxt::load_row(init_cum, r, lane);
   const int init_total = rxt::row_at(r, rxt::kRow - 1);
-  const int tfreeze = freq_max > init_total ? (freq_max - init_total + delta - 1) / delta : 0;
+  const int tfreeze = rxt::freeze_point(init_total, freq_max, delta);
   const int len = lens[blk];
   const int upd_end = len < tfreeze ? len : tfreeze;  // positions t < upd_end adapt
   const size_t row = static_cast<size_t>(blk) * K;

@@ -17,7 +17,9 @@ import torch
 from . import api
 from .convert import init_cum_from_numpy
 from .ops.decode import decode_blocks, decode_blocks_plain
-from .ops.encode import encode_blocks, encode_blocks_plain
+from .ops.encode import (encode_blocks, encode_blocks_fused, encode_blocks_fused_plain,
+                         encode_blocks_plain)
+from .ops.encode_m import encode_blocks_m, encode_blocks_m_plain
 from .ops.model import model_lohi, model_lohi_plain
 from .params import Parameters
 from .testdata import golden_input, incompressible, text_like
@@ -26,6 +28,13 @@ KERNELS = {
     "model_values": ("redux_tpu_torch/csrc/model_values.cu", "redux_tpu/ops/pallas_model.py:63"),
     "encode": ("redux_tpu_torch/csrc/encode.cu", "redux_tpu/ops/pallas_encode.py:86"),
     "decode": ("redux_tpu_torch/csrc/decode.cu", "redux_tpu/ops/pallas_decode.py:109"),
+    "encode_fused": ("redux_tpu_torch/csrc/encode_fused.cu", "redux_tpu/ops/pallas_encode.py:86"),
+    "encode_m": ("redux_tpu_torch/csrc/encode_m.cu", "redux_tpu/ops/pallas_encode.py:564"),
+}
+# The encoders from symbols (K4, K5): kernel and plain version.
+SYMBOL_ENCODERS = {
+    "encode_fused": (encode_blocks_fused, encode_blocks_fused_plain),
+    "encode_m": (encode_blocks_m, encode_blocks_m_plain),
 }
 K = 4096  # block size of the phase-3 checks: the main path's auto size at 64 MiB
 SEED = 7
@@ -34,6 +43,21 @@ SEED = 7
 def _require(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def plain_run(fn, timed: bool):
+    """``fn()`` once; returns its result and its device milliseconds (CUDA
+    events), or None for the time when ``timed`` is false."""
+    if not timed:
+        return fn(), None
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
@@ -73,10 +97,23 @@ def _max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> dict:
-    """Run K1, K2 and K3 and their plain versions on ``x``; assert exact
-    equality; return per kernel ``max_abs_err``, ``ms`` and ``plain_ms``.
+def triple_err(a, b, n_words: int) -> int:
+    """Largest difference of two ``(words, byte_lens, ovf)`` triples: byte
+    lengths and ovf exactly, the words up to each byte length."""
+    words, bl, ovf = a
+    err = max(_max_abs(bl, b[1]), _max_abs(ovf, b[2]))
+    wvalid = torch.arange(n_words, device=words.device)[None, :] * 4 < bl[:, None]
+    return max(err, _max_abs(words[wvalid], b[0][wvalid]))
 
+
+def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> dict:
+    """Run every kernel and its plain version on ``x``; assert exact
+    equality; return per kernel ``max_abs_err``, ``ms`` and ``plain_ms``
+    (each plain version runs once, timed in that run when ``time_plain``).
+
+    K4 and K5 must also give K2's triple on the same input; where the
+    parameters are off their path (not ``fits_u32`` or ``fits_wide32``)
+    both wrappers must raise ValueError, and their entry says so.
     K3 decodes K2's streams as the main path stages them: blocks stored
     raw (ovf, or not smaller than raw) get no symbols, the rest must come
     back as their input bytes.
@@ -86,28 +123,51 @@ def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> 
     valid = torch.arange(x.k, device=x.syms.device)[None, :] < x.lens[:, None]
 
     lo, hi = model_lohi(x.syms, x.lens, x.init_cum, p, d)
-    lo_p, hi_p = model_lohi_plain(x.syms, x.lens, x.init_cum, p, d)
+    (lo_p, hi_p), plain_ms = plain_run(
+        lambda: model_lohi_plain(x.syms, x.lens, x.init_cum, p, d), time_plain)
     err = max(_max_abs(lo[valid], lo_p[valid]), _max_abs(hi[valid], hi_p[valid]))
     _require(err == 0, f"model_values differs from its plain version (max |diff| {err})")
     out["model_values"] = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: model_lohi(x.syms, x.lens, x.init_cum, p, d), reps),
-        "plain_ms": cuda_ms(lambda: model_lohi_plain(x.syms, x.lens, x.init_cum, p, d), 1, 0)
-        if time_plain else None,
+        "plain_ms": plain_ms,
     }
 
     enc = (lo, hi, x.lens, x.init_total, p, x.n_words, d)
-    words, bl, ovf = encode_blocks(*enc)
-    words_p, bl_p, ovf_p = encode_blocks_plain(*enc)
-    wvalid = torch.arange(x.n_words, device=words.device)[None, :] * 4 < bl[:, None]
-    err = max(_max_abs(bl, bl_p), _max_abs(ovf, ovf_p), _max_abs(words[wvalid], words_p[wvalid]))
+    coded = encode_blocks(*enc)
+    coded_p, plain_ms = plain_run(lambda: encode_blocks_plain(*enc), time_plain)
+    err = triple_err(coded, coded_p, x.n_words)
     _require(err == 0, f"encode differs from its plain version (max |diff| {err})")
     out["encode"] = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: encode_blocks(*enc), reps),
-        "plain_ms": cuda_ms(lambda: encode_blocks_plain(*enc), 1, 0) if time_plain else None,
+        "plain_ms": plain_ms,
     }
 
+    sym_args = (x.syms, x.lens, x.init_cum, p, x.n_words, d)
+    for name, (kernel, plain) in SYMBOL_ENCODERS.items():
+        if not (p.fits_u32 or p.fits_wide32):
+            try:
+                kernel(*sym_args)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"{name} took parameters off its path: {p}")
+            out[name] = {"max_abs_err": 0, "ms": None, "plain_ms": None, "raises": "ValueError"}
+            continue
+        mine = kernel(*sym_args)
+        mine_p, plain_ms = plain_run(lambda: plain(*sym_args), time_plain)
+        err = triple_err(mine, mine_p, x.n_words)
+        _require(err == 0, f"{name} differs from its plain version (max |diff| {err})")
+        err_k2 = triple_err(mine, coded, x.n_words)
+        _require(err_k2 == 0, f"{name} differs from K1 -> K2 (max |diff| {err_k2})")
+        out[name] = {
+            "max_abs_err": max(err, err_k2),
+            "ms": cuda_ms(lambda: kernel(*sym_args), reps),
+            "plain_ms": plain_ms,
+        }
+
+    words, bl, ovf = coded
     raw = ovf | (bl >= x.lens)
     klens = torch.where(raw, 0, x.lens).to(torch.int32)
     coded_max = int(torch.where(raw, 0, bl).max())
@@ -116,18 +176,19 @@ def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> 
     staged = torch.nn.functional.pad(words, (0, 2))[:, :wcap].contiguous()
     dec = (staged, klens, x.init_cum, p, x.k, d)
     syms = decode_blocks(*dec)
-    syms_p = decode_blocks_plain(*dec)
+    syms_p, plain_ms = plain_run(lambda: decode_blocks_plain(*dec), time_plain)
     err = _max_abs(syms, syms_p)
     _require(err == 0, f"decode differs from its plain version (max |diff| {err})")
-    coded = ~raw
-    _require(torch.equal(torch.where(valid[coded], syms[coded], 0),
-                         torch.where(valid[coded], x.syms[coded], 0)), "decode lost the input")
+    ok = ~raw
+    _require(torch.equal(torch.where(valid[ok], syms[ok], 0),
+                         torch.where(valid[ok], x.syms[ok], 0)), "decode lost the input")
     out["decode"] = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: decode_blocks(*dec), reps),
-        "plain_ms": cuda_ms(lambda: decode_blocks_plain(*dec), 1, 0) if time_plain else None,
+        "plain_ms": plain_ms,
     }
     out["raw_blocks"] = int(raw.sum())
+    out["k2_triple"] = coded
     return out
 
 
@@ -141,9 +202,10 @@ def phase3_data(n_blocks: int, k: int, seed: int) -> bytes:
 
 
 def check_kernels(device: torch.device, n_blocks: int = 1024) -> dict:
-    """Phase 3: the kernels against their plain versions at tpu_wide,
-    delta 16 with the prior; at tpu32 with the freeze engaged; and at the
-    reference CLI's (8,30,32)."""
+    """Phase 3: the kernels against their plain versions (and K4, K5
+    against K2) at tpu_wide, delta 16 with the prior; at tpu32 with the
+    freeze engaged; and at the reference CLI's (8,30,32), where K4 and K5
+    must refuse the parameters."""
     data = phase3_data(n_blocks, K, SEED)
     wide = KernelInputs(data, Parameters.tpu_wide(), 16, K, device)
     res = {"tpu_wide": compare_kernels(wide)}

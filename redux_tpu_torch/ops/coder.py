@@ -8,7 +8,9 @@ big-endian.
 The plain (CPU) versions of the kernels compute in int64 with explicit
 32-bit masks, because CPU torch lacks most uint32 arithmetic and has no
 count-leading-zeros; :func:`bit_length` emulates it exactly for values
-below 2**53.
+below 2**53.  :class:`PlainCoder` is the coder step and emission of every
+plain encoder (K2, K4 and K5), as ``csrc/common.cuh::Coder`` is the
+kernels'.
 """
 
 from __future__ import annotations
@@ -68,6 +70,23 @@ def kernel_device(device: torch.device) -> bool:
     raise ValueError(f"unsupported device {device}")
 
 
+def expect_symbol_encoder(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
+                          params: Parameters, n_words: int, delta: int) -> None:
+    """Raise ValueError unless the arguments are what the encoders from
+    symbols (K4, K5) take: ``(B, K)`` uint8 ``syms``, ``(B,)`` int32
+    ``lens``, the int32 initial row, ``n_words >= 1``, ``delta`` in 1..255,
+    and parameters on the reference's kernel path (``fits_u32`` or
+    ``fits_wide32``)."""
+    dev = syms.device
+    expect(syms, "syms", torch.uint8, (None, None), dev)
+    expect(lens, "lens", torch.int32, (syms.shape[0],), dev)
+    expect(init_cum, "init_cum", torch.int32, (params.symbol_count + 1,), dev)
+    if not (params.fits_u32 or params.fits_wide32):
+        raise ValueError("the encoders from symbols require fits_u32 or fits_wide32 params")
+    if params.symbol_bits != 8 or not 1 <= delta <= 255 or n_words < 1:
+        raise ValueError("symbol_bits 8, delta in 1..255 and n_words >= 1 are required")
+
+
 def check_code_bits(params: Parameters) -> None:
     """The kernels keep the interval in 64 bits: ``code_bits <= 32`` and
     products ``range * count < 2**62`` (the reference's own limits)."""
@@ -109,3 +128,82 @@ def renorm_plain(low, high, cb: int, active):
     low2 = (low1 << n3) & (cmax >> 1)
     high2 = (((high1 << n3) | mask(n3)) & (cmax >> 1)) | (1 << (cb - 1))
     return torch.where(active, low2, low), torch.where(active, high2, high), n1, n3
+
+
+class PlainCoder:
+    """The v2 coder over all blocks at once, in int64 with 32-bit masks:
+    one :meth:`step` a position ``t = 0 .. max(lens)``, then
+    :meth:`finish`.  Runs on any device."""
+
+    def __init__(self, lens: torch.Tensor, params: Parameters, n_words: int):
+        b, dev = lens.shape[0], lens.device
+        self.params, self.n_words = params, n_words
+        self.lens = lens.to(torch.int64)
+        self.rows = torch.arange(b, device=dev)
+        zero = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.low, self.high, self.pending = zero.clone(), zero + params.code_max, zero.clone()
+        self.acc, self.accbits, self.nw = zero.clone(), zero.clone(), zero.clone()
+        self.ovf = torch.zeros(b, dtype=torch.bool, device=dev)
+        self.words = torch.zeros(b, n_words + 1, dtype=torch.int64, device=dev)  # last: spill
+
+    def _put(self, v, n):
+        acc = (self.acc << n) | v
+        accbits = self.accbits + n
+        full = accbits >= 32
+        left = accbits - 32 * full
+        idx = torch.where(full, self.nw.clamp(max=self.n_words), self.n_words)
+        self.words[self.rows, idx] = (acc >> left) & M32
+        self.nw = self.nw + full
+        self.acc = acc & mask(left)
+        self.accbits = left
+
+    def step(self, t: int, flo, fhi, count) -> None:
+        """Position ``t``: blocks with ``t < lens`` narrow by ``(flo, fhi)``
+        over ``count`` (an int or a per-block tensor, >= 1) and emit;
+        blocks with ``t == lens`` emit the 2-bit terminator."""
+        p = self.params
+        cb = p.code_bits
+        low, high, pending = self.low, self.high, self.pending
+        active = t < self.lens
+        is_term = t == self.lens
+        rng = high - low + 1
+        nlow = low + rng * flo // count
+        nhigh = low + rng * fhi // count - 1
+        low = torch.where(active, nlow, low)
+        high = torch.where(active, nhigh, high)
+        low2, high2, n1, n3 = renorm_plain(low, high, cb, active)
+        # Data piece [b1][pending x !b1][n1-1 prefix bits], or the terminator.
+        rl = (n1 - 1).clamp(min=0)
+        prefix = low >> (cb - n1)
+        tq = (low + p.code_one_fourth - 1) >> (cb - 2)
+        lead = torch.where(is_term, tq >> 1, prefix >> rl)
+        rest = torch.where(is_term, tq & 1, prefix & mask(rl))
+        rl = torch.where(is_term, 1, rl)
+        emit = (active & (n1 > 0)) | is_term
+        # Past 64 bits the reference's 64-bit piece keeps its low 64 bits
+        # with the run cut to 63 and the lead bit at position 63.
+        big = emit & (rl + 1 + pending > 64)
+        self.ovf |= big
+        first = torch.where(big, lead | (rl >= 1), lead)
+        run = torch.where(big, 63 - rl, pending)
+        opp = torch.where(lead == 0, mask(run.clamp(max=62)), 0)
+        opp = torch.where((lead == 0) & (run == 63), (1 << 63) - 1, opp)
+        piece = (first << (run + rl)) | (opp << rl) | rest
+        m = torch.where(emit, 1 + run + rl, 0)
+        n_hi = (m - 32).clamp(min=0)
+        n_lo = m.clamp(max=32)
+        self._put((piece >> 32) & mask(n_hi), n_hi)
+        self._put(piece & mask(n_lo), n_lo)
+        self.pending = torch.where(emit, 0, pending) + n3
+        self.low, self.high = low2, high2
+
+    def finish(self):
+        """``(words (B, n_words) int32, byte_lens (B,) int32, ovf (B,) bool)``."""
+        n_words, accbits = self.n_words, self.accbits
+        byte_lens = (self.nw * 32 + accbits + 7) >> 3
+        tail = accbits > 0
+        idx = torch.where(tail, self.nw.clamp(max=n_words), n_words)
+        self.words[self.rows, idx] = (self.acc << (32 - accbits)) & M32
+        words = self.words[:, :n_words]
+        words = words - ((words >> 31) << 32)  # u32 bit patterns into int32 range
+        return words.to(torch.int32), byte_lens.to(torch.int32), self.ovf

@@ -1,9 +1,13 @@
-"""K2 — the v2 interval coder, and the ranked encode K1 -> K2.
+"""K2 — the v2 interval coder; K4 — the fused model + coder; and the
+ranked encode that runs K1 -> K2, or K4.
 
 Counterpart: ``redux_tpu/ops/pallas_encode.py`` — ``encode_blocks_pallas``
 (:521-561; kernel ``_encode_kernel(model_inline=False)``, launched by
-``_encode_pallas_jit``) and ``encode_blocks_ranked`` (:897-1011, its
-two-kernel branch :1003-1010).  Kernel: ``csrc/encode.cu``.
+``_encode_pallas_jit``), ``_encode_fused_model_jit`` (:451-518; kernel
+``_encode_kernel(model_inline=True)``) and ``encode_blocks_ranked``
+(:897-1011: the fused branch :991-1001 under ``REDUX_TPU_ENC_FUSED``, the
+two-kernel branch :1003-1010).  Kernels: ``csrc/encode.cu`` (K2),
+``csrc/encode_fused.cu`` (K4).
 
 Per block the coder narrows the interval by the given ``(lo, hi)`` and the
 closed-form total ``max(init_total + delta * min(t, tfreeze), 1)``,
@@ -14,14 +18,18 @@ ends with the 2-bit v2 terminator at ``t == lens``.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .. import _build
 from ..params import Parameters
-from .coder import M32, check_code_bits, expect, kernel_device, mask, renorm_plain, tfreeze
-from .model import model_lohi
+from .coder import (M32, PlainCoder, check_code_bits, expect, expect_symbol_encoder,
+                    kernel_device, tfreeze)
+from .model import model_lohi, model_lohi_plain
 
 launches = 0  # kernel launches of encode_blocks (CUDA tensors only)
+fused_launches = 0  # kernel launches of encode_blocks_fused (CUDA tensors only)
 
 
 def encode_blocks_plain(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor,
@@ -30,74 +38,15 @@ def encode_blocks_plain(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor,
     Python step per position, in int64 with 32-bit masks.  Runs on any
     device.  Returns ``(words, byte_lens, ovf)`` as :func:`encode_blocks`."""
     b, k = lo.shape
-    dev = lo.device
-    i64 = torch.int64
-    cb = params.code_bits
     tf = tfreeze(init_total, params, delta)
-    lens = lens.to(i64)
     # One zero column past K: the terminator step t == K reads no values.
-    lo = torch.nn.functional.pad(lo.to(i64) & M32, (0, 1))
-    hi = torch.nn.functional.pad(hi.to(i64) & M32, (0, 1))
-    rows = torch.arange(b, device=dev)
-    zero = torch.zeros(b, dtype=i64, device=dev)
-    low, high, pending = zero.clone(), torch.full_like(zero, params.code_max), zero.clone()
-    acc, accbits, nw = zero.clone(), zero.clone(), zero.clone()
-    ovf = torch.zeros(b, dtype=torch.bool, device=dev)
-    words = torch.zeros(b, n_words + 1, dtype=i64, device=dev)  # last column: spill
-
-    def put(v, n):
-        nonlocal acc, accbits, nw
-        acc = (acc << n) | v
-        accbits = accbits + n
-        full = accbits >= 32
-        left = accbits - 32 * full
-        idx = torch.where(full, nw.clamp(max=n_words), n_words)
-        words[rows, idx] = (acc >> left) & M32
-        nw = nw + full
-        acc = acc & mask(left)
-        accbits = left
-
+    lo = torch.nn.functional.pad(lo.to(torch.int64) & M32, (0, 1))
+    hi = torch.nn.functional.pad(hi.to(torch.int64) & M32, (0, 1))
+    coder = PlainCoder(lens, params, n_words)
     t_end = min(int(lens.max()), k) if b else -1
     for t in range(t_end + 1):
-        active = t < lens
-        is_term = t == lens
-        count = max(init_total + delta * min(t, tf), 1)
-        rng = high - low + 1
-        nlow = low + rng * lo[:, t] // count
-        nhigh = low + rng * hi[:, t] // count - 1
-        low = torch.where(active, nlow, low)
-        high = torch.where(active, nhigh, high)
-        low2, high2, n1, n3 = renorm_plain(low, high, cb, active)
-        # Data piece [b1][pending x !b1][n1-1 prefix bits], or the terminator.
-        rl = (n1 - 1).clamp(min=0)
-        prefix = low >> (cb - n1)
-        tq = (low + params.code_one_fourth - 1) >> (cb - 2)
-        lead = torch.where(is_term, tq >> 1, prefix >> rl)
-        rest = torch.where(is_term, tq & 1, prefix & mask(rl))
-        rl = torch.where(is_term, 1, rl)
-        emit = (active & (n1 > 0)) | is_term
-        # Past 64 bits the reference's 64-bit piece keeps its low 64 bits
-        # with the run cut to 63 and the lead bit at position 63.
-        big = emit & (rl + 1 + pending > 64)
-        ovf |= big
-        first = torch.where(big, lead | (rl >= 1), lead)
-        run = torch.where(big, 63 - rl, pending)
-        opp = torch.where(lead == 0, mask(run.clamp(max=62)), 0)
-        opp = torch.where((lead == 0) & (run == 63), (1 << 63) - 1, opp)
-        piece = (first << (run + rl)) | (opp << rl) | rest
-        m = torch.where(emit, 1 + run + rl, 0)
-        n_hi = (m - 32).clamp(min=0)
-        n_lo = m.clamp(max=32)
-        put((piece >> 32) & mask(n_hi), n_hi)
-        put(piece & mask(n_lo), n_lo)
-        pending = torch.where(emit, 0, pending) + n3
-        low, high = low2, high2
-    byte_lens = (nw * 32 + accbits + 7) >> 3
-    tail = accbits > 0
-    words[rows, torch.where(tail, nw.clamp(max=n_words), n_words)] = (acc << (32 - accbits)) & M32
-    words = words[:, :n_words]
-    words = words - ((words >> 31) << 32)  # u32 bit patterns into int32 range
-    return words.to(torch.int32), byte_lens.to(torch.int32), ovf
+        coder.step(t, lo[:, t], hi[:, t], max(init_total + delta * min(t, tf), 1))
+    return coder.finish()
 
 
 def encode_blocks(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, init_total: int,
@@ -144,14 +93,67 @@ def encode_blocks(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, init_t
     return words, byte_lens, ovf
 
 
+def encode_blocks_fused_plain(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
+                              params: Parameters, n_words: int, delta: int):
+    """The plain PyTorch version of K4: K1's plain version feeding K2's."""
+    lo, hi = model_lohi_plain(syms, lens, init_cum, params, delta)
+    return encode_blocks_plain(lo, hi, lens, int(init_cum[-1]), params, n_words, delta)
+
+
+def encode_blocks_fused(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
+                        params: Parameters, n_words: int, delta: int):
+    """Code ``B`` blocks straight from their symbols in one kernel (K4).
+
+    Args: ``(B, K)`` uint8 ``syms``, ``(B,)`` int32 ``lens <= K``
+    (negative: a pad lane, no stream), the int32 ``(symbol_count + 1,)``
+    initial row, the output capacity ``n_words`` and the adaptation
+    increment.  Returns what :func:`encode_blocks` returns, bit for bit.
+    Raises ValueError unless ``params.fits_u32 or params.fits_wide32``, as
+    the reference's kernel does.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream.
+    """
+    global fused_launches
+    expect_symbol_encoder(syms, lens, init_cum, params, n_words, delta)
+    b, k = syms.shape
+    dev = syms.device
+    n_words, delta = int(n_words), int(delta)
+    if not kernel_device(dev):
+        return encode_blocks_fused_plain(syms, lens, init_cum, params, n_words, delta)
+    words = torch.empty(b, n_words, dtype=torch.int32, device=dev)
+    byte_lens = torch.empty(b, dtype=torch.int32, device=dev)
+    ovf = torch.empty(b, dtype=torch.bool, device=dev)
+    if b == 0:
+        return words, byte_lens, ovf
+    err = _build.lib().rxt_encode_fused(
+        syms.data_ptr(), lens.data_ptr(), init_cum.data_ptr(), words.data_ptr(),
+        byte_lens.data_ptr(), ovf.data_ptr(), b, k, n_words, delta, params.freq_max,
+        params.code_bits, dev.index or 0, _build.stream_of(dev),
+    )
+    _build.check(err, "rxt_encode_fused")
+    fused_launches += 1
+    return words, byte_lens, ovf
+
+
+def fused_selected(params: Parameters) -> bool:
+    """Whether :func:`encode_blocks_ranked` runs K4: ``REDUX_TPU_ENC_FUSED``
+    set to anything but ``"0"`` (read on every call, as the reference
+    reads it on every trace), for parameters that K4 takes."""
+    return os.environ.get("REDUX_TPU_ENC_FUSED", "0") != "0" and (
+        params.fits_u32 or params.fits_wide32)
+
+
 def encode_blocks_ranked(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
                          params: Parameters, n_words: int, delta: int):
-    """The production encode: K1 model values feed the K2 coder.
+    """The production encode: K1 model values feed the K2 coder, or, when
+    :func:`fused_selected`, the fused K4 alone (the same bytes).
 
-    ``syms`` is ``(B, K)`` uint8, ``lens`` ``(B,)`` int32 (``0 <= lens <=
-    K``), ``init_cum`` the int32 initial row.  Returns what
-    :func:`encode_blocks` returns.
+    ``syms`` is ``(B, K)`` uint8, ``lens`` ``(B,)`` int32 (``lens <= K``;
+    negative: a pad lane), ``init_cum`` the int32 initial row.  Returns
+    what :func:`encode_blocks` returns.  Parameters that K4 does not take
+    go through K1 -> K2 whatever the variable says, as in the reference.
     """
+    if fused_selected(params):
+        return encode_blocks_fused(syms, lens, init_cum, params, n_words, delta)
+    init_total = int(init_cum[-1])  # read before K1 is queued: no wait on it
     lo, hi = model_lohi(syms, lens, init_cum, params, delta)
-    init_total = int(init_cum[-1])
     return encode_blocks(lo, hi, lens, init_total, params, n_words, delta)

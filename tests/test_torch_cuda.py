@@ -45,7 +45,10 @@ def test_main_path_launches_every_kernel(cuda_device):
     redux_tpu_torch.reset_launch_counts()
     arch = redux_tpu_torch.encode(data, device=cuda_device)
     assert redux_tpu_torch.decode(arch, device=cuda_device) == data
-    assert all(n > 0 for n in redux_tpu_torch.launch_counts().values())
+    counts = redux_tpu_torch.launch_counts()
+    # The default route is K1 -> K2, K3; K4 and K5 are off it.
+    assert all(counts[k] > 0 for k in ("model_values", "encode", "decode")), counts
+    assert counts["encode_fused"] == counts["encode_m"] == 0, counts
 
 
 @pytest.mark.cuda
@@ -58,3 +61,68 @@ def test_wrapper_rejects_mixed_devices(cuda_device):
     with pytest.raises(ValueError):
         model_lohi(syms, lens, torch.arange(258, dtype=torch.int32, device=cuda_device),
                    Parameters.tpu_wide(), 16)
+
+
+@pytest.mark.cuda
+def test_symbol_encoders_equal_plain_and_k2(cuda_device):
+    """K4 and K5 against their plain versions and against K1 -> K2 (the
+    new checks of phase 3), with the freeze engaged at tpu32."""
+    from redux_tpu_torch import cuda_checks
+    from redux_tpu_torch.params import Parameters
+
+    data = cuda_checks.phase3_data(64, cuda_checks.K, 11)
+    for params in (Parameters.tpu_wide(), Parameters.tpu32()):
+        x = cuda_checks.KernelInputs(data, params, 16, cuda_checks.K, cuda_device)
+        res = cuda_checks.compare_kernels(x, time_plain=False, reps=1)
+        assert res["encode_fused"]["max_abs_err"] == 0 and res["encode_m"]["max_abs_err"] == 0
+
+
+@pytest.mark.cuda
+def test_symbol_encoders_refuse_8_30_32(cuda_device):
+    from redux_tpu_torch import cuda_checks
+    from redux_tpu_torch.params import Parameters
+
+    data = cuda_checks.phase3_data(8, 1024, 12)
+    x = cuda_checks.KernelInputs(data, Parameters.default(), 7, 1024, cuda_device)
+    res = cuda_checks.compare_kernels(x, time_plain=False, reps=1)
+    assert res["encode_fused"]["raises"] == res["encode_m"]["raises"] == "ValueError"
+
+
+@pytest.mark.cuda
+def test_fused_route_round_trip(cuda_device, monkeypatch):
+    """4 MiB through ``encode`` with REDUX_TPU_ENC_FUSED=1: K4 alone
+    encodes, and the archive is the default route's."""
+    import redux_tpu_torch
+    from redux_tpu_torch import testdata
+
+    data = testdata.mixed(4 << 20, 6)
+    default = redux_tpu_torch.encode(data, device=cuda_device)
+    monkeypatch.setenv("REDUX_TPU_ENC_FUSED", "1")
+    redux_tpu_torch.reset_launch_counts()
+    arch = redux_tpu_torch.encode(data, device=cuda_device)
+    counts = redux_tpu_torch.launch_counts()
+    assert arch == default
+    assert counts["encode_fused"] > 0 and counts["model_values"] == counts["encode"] == 0
+    assert redux_tpu_torch.decode(arch, device=cuda_device) == data
+
+
+@pytest.mark.cuda
+def test_two_shards_on_one_card(cuda_device):
+    """4 MiB through ``encode``/``decode`` over ``[dev, dev]``: the default
+    route's archive, a byte-equal round trip, and the sharded K5 entry
+    equal to K1 -> K2."""
+    import redux_tpu_torch
+    from redux_tpu_torch import api, cuda_checks, testdata
+    from redux_tpu_torch.ops.encode import encode_blocks_ranked
+    from redux_tpu_torch.parallel import encode_blocks_m_sharded
+
+    data = testdata.mixed(4 << 20, 7)
+    two = [cuda_device, cuda_device]
+    arch = redux_tpu_torch.encode(data, device=two)
+    assert arch == redux_tpu_torch.encode(data, device=cuda_device)
+    assert redux_tpu_torch.decode(arch, device=two) == data
+    x = cuda_checks.KernelInputs(data, api.Parameters.tpu_wide(), 16, 4096, cuda_device)
+    args = (x.syms, x.lens, x.init_cum, x.params, x.n_words)
+    ranked = encode_blocks_ranked(*args, x.delta)
+    sharded = encode_blocks_m_sharded(*args, two, x.delta)
+    assert cuda_checks.triple_err(sharded, ranked, x.n_words) == 0

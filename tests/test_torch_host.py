@@ -192,6 +192,12 @@ def test_port_imports_neither_jax_nor_reference():
     for path in [*sorted((ROOT / "redux_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
         for no, line in enumerate(path.read_text().splitlines(), 1):
             assert not pattern.match(line), f"{path.name}:{no}: {line}"
-    code = "import sys; import redux_tpu_torch; assert 'jax' not in sys.modules"
+    code = (
+        "import sys; import redux_tpu_torch, redux_tpu_torch.parallel, redux_tpu_torch.ops.encode_m, "
+        "redux_tpu_torch.cuda_checks, redux_tpu_torch.parallel.mesh; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'redux_tpu')]; "
+        "assert not bad, bad"
+    )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
-    assert set(redux_tpu_torch.launch_counts()) == {"model_values", "encode", "decode"}
+    assert set(redux_tpu_torch.launch_counts()) == {
+        "model_values", "encode", "decode", "encode_fused", "encode_m"}
