@@ -13,9 +13,11 @@ one card), plus the sharded K5 entry at the main path's shapes.  Each
 route's archive must equal the default route's, each round trip must be
 byte-equal, and each route must have launched its kernels (counts reset
 just before it, read just after).  Phases print one line each; the line
-before the last is the kernels' JSON summary and the last line is
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero and prints
-no result; so does a machine without CUDA.
+before the last is the kernels' JSON summary (each kernel's time at the
+main shapes beside its bound, ``cuda_checks.kernel_bounds``; no single
+PyTorch call computes any of them, so ``library_ms`` is null) and the
+last line is ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero and prints no result; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -93,6 +95,8 @@ def main() -> int:
     lib = _build.build()
     _build.lib()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.3f} s ({_build.nvcc_version()})")
+    for line in _build.resource_usage():
+        print(f"ptxas: {line}")
 
     # Phase 3: kernels against their plain versions.
     res = cuda_checks.check_kernels(dev)
@@ -131,8 +135,11 @@ def main() -> int:
     torch.cuda.synchronize()
     for k in cuda_checks.KERNELS:
         r = main_res[k]
-        print(f"main-shape {k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms "
-              f"({n_blocks} x {k_auto}), equal")
+        extra = (f", {r['ms_unsorted']:.3f} ms on lanes in block order"
+                 if "ms_unsorted" in r else "")
+        print(f"main-shape {k}: kernel {r['ms']:.3f} ms{extra}, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} bytes, "
+              f"{r['ops']} int32 ops) ({n_blocks} x {k_auto}), equal")
 
     # Phase 6: the fused route (K4 in place of K1 -> K2) at real size.
     fused_on = {"model_values": False, "encode": False, "encode_fused": True, "decode": True}
@@ -169,10 +176,12 @@ def main() -> int:
     kernels = []
     for k, (source, replaces) in cuda_checks.KERNELS.items():
         err = max(main_res[k]["max_abs_err"], *(r[k]["max_abs_err"] for r in res.values()))
+        r = main_res[k]
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches[k], "max_abs_err": err,
-            "ms": main_res[k]["ms"], "plain_ms": main_res[k]["plain_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "bound": r["bound"], "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

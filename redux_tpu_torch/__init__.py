@@ -6,12 +6,13 @@ same input and configuration this package emits the same archive bytes,
 and each package decodes the other's archives.  It imports torch and
 numpy, never JAX.
 
-``encode(data, device=...)`` / ``decode(archive, device=...)``: a CUDA
-device runs the kernels (K1 model values, K2 coder, K3 decoder, or K4, the
-fused model + coder, under ``REDUX_TPU_ENC_FUSED=1``); a CPU device runs
-their plain PyTorch versions; a list of devices shards the blocks over
-them (``redux_tpu_torch.parallel``).  K5 (``ops.encode_m``) is the
-independent model-in-kernel encoder, as in the reference.
+``encode(data)`` / ``decode(archive)`` run on the card by default
+(``device="cuda"``): the kernels K1 model values, K2 coder, K3 decoder, or
+K4, the fused model + coder, under ``REDUX_TPU_ENC_FUSED=1``.  Without a
+CUDA device they raise.  ``device="cpu"`` runs the kernels' plain PyTorch
+versions, as the tests do; a list of devices shards the blocks over them
+(``redux_tpu_torch.parallel``).  K5 (``ops.encode_m``) is the independent
+model-in-kernel encoder, as in the reference.
 """
 
 from __future__ import annotations

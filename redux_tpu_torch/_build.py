@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,7 +28,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "redux_tpu_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# -Xptxas -v: each kernel's registers, spills and shared memory, kept
+# beside the library (resource_usage).
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argument types (all return int = cudaError_t).
@@ -38,8 +41,8 @@ SIGNATURES = {
     # tfreeze, delta, code_bits, device, stream
     "rxt_encode_blocks": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # words, lens, init_cum, out, B, W, k, delta, freq_max, code_bits,
-    # device, stream
-    "rxt_decode_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # fits53, device, stream
+    "rxt_decode_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # syms, lens, init_cum, words, byte_lens, ovf, B, K, n_words, delta,
     # freq_max, code_bits, device, stream (K4 and K5 take the same)
     "rxt_encode_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -98,19 +101,55 @@ def build() -> Path:
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for src, obj in zip(_sources(), objs)
         ]
-        errors = []
+        errors, reports = [], []
         for src, proc in zip(_sources(), procs):
-            _, err = proc.communicate()  # waits: no compiler outlives the build
+            so, se = proc.communicate()  # waits: no compiler outlives the build
             if proc.returncode != 0:
-                errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+                errors.append(f"{src.name} ({proc.returncode}):\n{se}")
+            reports.append(f"== {src.name}\n{so}{se}")
         if errors:
             raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        _report_path(out).write_text("\n".join(reports))
         link = [cc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
         res = subprocess.run(link, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     return out
+
+
+def _report_path(library: Path) -> Path:
+    return library.with_suffix(".ptxas.txt")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``decode_kernel<true>`` from its mangled name (length-prefixed
+    identifiers; a bool template argument is ``ILb0E``/``ILb1E``)."""
+    for m in re.finditer(r"(?=(\d+))", mangled):  # every start: "d719model_..." holds 19
+        start = m.start() + len(m.group(1))
+        ident = mangled[start : start + int(m.group(1))]
+        if ident.endswith("_kernel"):
+            arg = mangled[start + len(ident) :]
+            return ident + {"ILb0E": "<false>", "ILb1E": "<true>"}.get(arg[:5], "")
+    return mangled
+
+
+def resource_usage() -> list[str]:
+    """One line a kernel entry from ptxas's report of the build: source,
+    kernel (with its template argument), registers, shared memory and
+    spills."""
+    lines, src, name, spill = [], "", None, ""
+    for line in _report_path(build()).read_text().splitlines():
+        if line.startswith("== "):
+            src = line[3:]
+        elif m := re.search(r"entry function '(\S+)'", line):
+            name, spill = _kernel_name(m.group(1)), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            lines.append(f"{src} {name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return lines
 
 
 def lib() -> ctypes.CDLL:

@@ -12,12 +12,15 @@ Counterpart: ``redux_tpu/api.py`` — ``encode`` (:226-398) and ``decode``
 and for decode, the lanes sorted by coded length, the decoder (K3,
 ``ops.decode``), the inverse permutation, the raw splice and the crc.
 
-The device is the caller's choice: ``device="cuda"`` runs the kernels, a
-CPU device their plain PyTorch versions, and a sequence of two or more
-devices shards the blocks over them (``parallel.mesh``; the explicit
-counterpart of the reference's ``_dp_mesh`` branches, :98-113, :300-316,
-:483-510).  ``parallel.data_parallel_mesh()`` names every visible GPU.
-The archive bytes do not depend on the devices.
+The device defaults to the card: ``device="cuda"`` runs the kernels, and
+with no CUDA device a call raises RuntimeError before any kernel work
+instead of running anything else.  The CPU runs the kernels' plain
+PyTorch versions only when the caller asks for it (``device="cpu"``, as
+the tests do).  A sequence of two or more devices shards the blocks over
+them (``parallel.mesh``; the explicit counterpart of the reference's
+``_dp_mesh`` branches, :98-113, :300-316, :483-510).
+``parallel.data_parallel_mesh()`` names every visible GPU.  The archive
+bytes do not depend on the devices.
 """
 
 from __future__ import annotations
@@ -142,6 +145,15 @@ def _placement(device: Devices) -> tuple[torch.device, Optional[Mesh]]:
     return torch.device("cpu"), mesh
 
 
+def _require_cuda(device: torch.device) -> None:
+    """Raise for a CUDA device on a machine without one: the card is the
+    default, and the CPU runs only when the caller names it."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "redux_tpu_torch: device 'cuda' (the default) but torch.cuda.is_available() "
+            "is false; pass device='cpu' to run the plain PyTorch versions")
+
+
 class _Clock:
     """Host wall time per phase into ``timings`` (seconds, accumulated)."""
 
@@ -163,7 +175,7 @@ def encode(
     use_prior: Optional[bool] = None,
     prior_budget: int = DEFAULT_PRIOR_BUDGET,
     *,
-    device: Devices = "cpu",
+    device: Devices = "cuda",
     lane_quantum: int = LANE_QUANTUM,
     _timings: Optional[dict] = None,
 ) -> bytes:
@@ -172,9 +184,9 @@ def encode(
     Defaults: :meth:`Parameters.tpu_wide`, adaptation increment 16, a
     128k-count warm-start prior for inputs of 4096 bytes or more, and
     4 KiB blocks, auto-sized for inputs >= 2 MiB (see
-    :func:`_auto_block_size`).  ``device`` runs the kernels (CUDA) or their
-    plain versions (CPU); a sequence of devices shards the blocks over
-    them.
+    :func:`_auto_block_size`).  ``device`` (default ``"cuda"``) runs the
+    kernels; ``device="cpu"`` runs their plain versions; a sequence of
+    devices shards the blocks over them.
     """
     clock = _Clock(_timings)
     device, mesh = _placement(device)
@@ -192,6 +204,7 @@ def encode(
     prior_extra = _prior_extra(data, params, prior_budget) if use_prior else None
     ic = _init_cum(params, prior_extra)
     _check_config(params, block_size, delta, int(ic[-1]))
+    _require_cuda(device)
     crc = container.compute_crc(data)
     clock.mark("prior+crc")
 
@@ -261,19 +274,20 @@ def encode(
     return out
 
 
-def decode(archive: bytes, *, device: Devices = "cpu",
+def decode(archive: bytes, *, device: Devices = "cuda",
            _timings: Optional[dict] = None) -> bytes:
     """Decompress an RXT archive.
 
     Verifies the stored crc32 and raises :class:`InvalidInputError` on any
-    corruption instead of returning garbage.  ``device`` runs the kernel
-    (CUDA) or its plain version (CPU); a sequence of devices shards the
-    blocks over them.
+    corruption instead of returning garbage.  ``device`` (default
+    ``"cuda"``) runs the kernel; ``device="cpu"`` runs its plain version; a
+    sequence of devices shards the blocks over them.
     """
     clock = _Clock(_timings)
     device, mesh = _placement(device)
     header, _ = container.parse_archive(archive, with_streams=False)
     params = header.params
+    _require_cuda(device)
     if header.orig_len == 0:
         container.verify_crc(header, b"")
         return b""

@@ -1,6 +1,8 @@
-// Shared pieces of the port's kernels: the warp-held cumulative model row,
-// the closed-form interval renormalisation, and the v2 coder step with its
-// bit emission (K2, K4 and K5 all code and emit through Coder below).
+// Shared pieces of the port's kernels: the warp-held cumulative model row
+// (K4; K1 keeps its row in shared memory), the closed-form interval
+// renormalisation, the v2 coder step with its
+// bit emission (K2, K4 and K5 all code and emit through Coder below), and
+// the per-thread Fenwick model in shared memory (K3 and K5).
 //
 // Model row: one block's 258-entry cumulative row (257 symbols + total)
 // lives in the registers of one warp, entry i in register i / 32 of lane
@@ -177,5 +179,34 @@ struct Coder {
 __device__ __forceinline__ int freeze_point(int init_total, int freq_max, int delta) {
   return freq_max > init_total ? (freq_max - init_total + delta - 1) / delta : 0;
 }
+
+// Fenwick model of one block (K3, K5): one thread owns one block, and its
+// 257 symbol frequencies are a Fenwick tree in shared memory, the layout of
+// the reference library's own model (redux_tpu/models/fenwick.py): node i
+// (1-based) holds the frequencies of symbols i - lowbit(i) .. i - 1, so
+// cdf[v] = init_cum[0] + prefix(v).  Node i of the thread with index x
+// sits at tree[(i - 1) * kTreeThreads + x] in a CTA of kTreeThreads
+// threads, so every access of a warp hits 32 distinct banks whatever the
+// symbols.  The running total stays in a register beside the tree.
+constexpr int kTreeThreads = 32;       // blocks per CTA: one bank each
+constexpr int kNodes = kRow - 1;       // nodes 1..257
+constexpr int kTreeInts = kNodes * kTreeThreads;  // 32,896 bytes a CTA
+
+__device__ __forceinline__ int lowbit(int i) { return i & -i; }
+
+struct Fenwick {
+  int* col;  // this thread's column: tree + threadIdx.x
+
+  __device__ __forceinline__ int& node(int i) const { return col[(i - 1) * kTreeThreads]; }
+
+  __device__ __forceinline__ void init(const int32_t* __restrict__ init_cum) const {
+    for (int i = 1; i <= kNodes; ++i) node(i) = init_cum[i] - init_cum[i - lowbit(i)];
+  }
+
+  // freq[v] += d: the walk up from node v + 1.
+  __device__ __forceinline__ void add(int v, int d) const {
+    for (int i = v + 1; i <= kNodes; i += lowbit(i)) node(i) += d;
+  }
+};
 
 }  // namespace rxt

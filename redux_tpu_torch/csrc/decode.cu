@@ -11,35 +11,62 @@
 // Bits are read MSB-first from the block's row of big-endian u32 words;
 // reads past the row give zero bits.  Output: (B, k) u8, zero past lens.
 //
-// Design: one warp per block.  The model row sits in the warp's registers
-// (9 entries a lane, common.cuh); the symbol search is 9 ballots + popc,
-// flo/fhi two register selects + shuffles, the update 9 predicated adds a
-// lane.  Every lane carries the same interval and bit-reader state (u64
-// registers), so there is no broadcast step and no shared memory.  The
-// TPU's one-hot word pulls and slab refill sweep are gone: a lane reads its
-// block's next word directly (the 32 lanes read the same address, one
-// transaction).  Symbols are written 32 at a time (a 32-byte store).
-// What bounds it: the serial chain of one block (three 64-bit divisions,
-// the ballots and ~80 dependent instructions a symbol); one warp per block
-// gives 16384 warps for 64 MiB to hide that latency.
+// Design: one thread per block, 32 blocks a CTA, the model rxt::Fenwick
+// (common.cuh, K5's layout): 32,896 bytes of shared memory a CTA, so 6
+// CTAs an SM and 16384 blocks all resident in one wave.  The card issues
+// a warp's instructions in order, so every stall of one thread's chain
+// costs the whole symbol, and a loop whose trip count differs between
+// lanes runs as long as its longest lane.  Per symbol:
+// - the symbol is a Fenwick descent (steps 256 .. 1, a node taken while
+//   its sum is <= the remainder), giving sym and flo = value - remainder;
+//   it goes three levels a round, the 7 nodes below pos loaded together,
+//   so 3 rounds of dependent shared loads instead of 9;
+// - fhi = flo + freq(sym), freq(sym) being node p = sym + 1 less the
+//   nodes p - 2^q, q under p's trailing zero count: independent loads
+//   under predicates, no loop that diverges;
+// - the +delta update walk's nodes are loaded with them and stored after
+//   the narrowing, off the chain;
+// - count does not depend on the symbols (it grows by delta a position
+//   until freq_max), so its reciprocal for the next symbol is taken off
+//   the chain, and one reciprocal serves both bounds;
+// - where every dividend stays below 2^53 (kFits53, chosen by the wrapper
+//   from code_bits + bit_length(freq_max + 254) <= 53), a quotient is a
+//   double reciprocal times the dividend, truncated, then corrected by one
+//   (|error| < 1 there, so the result is exact); otherwise (e.g. the CLI's
+//   (8,30,32), products up to 2^62) native u64 divisions;
+// - the bit reader keeps the block's next word in flight one word ahead;
+//   symbols collect in a 16-byte register window and are stored 16 at a
+//   time (k a multiple of 16; byte stores otherwise).
+// What bounds it: one thread's dependent chain a symbol (the value
+// division, 3 rounds of the descent, the narrowing quotients, the renorm):
+// latency, with about one warp a scheduler at 16384 blocks.
 #include "common.cuh"
 
 namespace {
+
+using rxt::kNodes;
+using rxt::lowbit;
+constexpr int kThreads = rxt::kTreeThreads;
 
 struct BitReader {
   const uint32_t* w;
   int n_words;
   uint64_t buf = 0;  // nb bits, left-aligned
   int nb = 0;
-  int next = 0;
+  int next = 0;       // index of `ahead`
+  uint32_t ahead;     // the next word, loaded one refill early
+
+  __device__ BitReader(const uint32_t* words, int n) : w(words), n_words(n) {
+    ahead = n > 0 ? w[0] : 0u;
+  }
 
   __device__ __forceinline__ uint64_t get(int n) {  // n <= 32
     if (n == 0) return 0;
     if (nb < n) {
-      const uint32_t word = next < n_words ? w[next] : 0u;
-      buf |= static_cast<uint64_t>(word) << (32 - nb);
-      ++next;
+      buf |= static_cast<uint64_t>(ahead) << (32 - nb);
       nb += 32;
+      ++next;
+      ahead = next < n_words ? w[next] : 0u;
     }
     const uint64_t v = buf >> (64 - n);
     buf <<= n;
@@ -48,53 +75,140 @@ struct BitReader {
   }
 };
 
-__global__ void decode_kernel(const uint32_t* __restrict__ words,
-                              const int32_t* __restrict__ lens,
-                              const int32_t* __restrict__ init_cum,
-                              uint8_t* __restrict__ out, int B, int W, int k, int delta,
-                              int freq_max, int cb) {
-  const int blk = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (blk >= B) return;  // uniform over the warp
-  int r[rxt::kRegs];
-  rxt::load_row(init_cum, r, lane);
-  uint64_t count = static_cast<uint32_t>(rxt::row_at(r, rxt::kRow - 1));
+// floor(a / b) for a < 2^53 from rb = 1/b rounded: the truncated product is
+// within one of the quotient, and one integer test corrects it.
+__device__ __forceinline__ uint64_t div53(uint64_t a, uint64_t b, double rb) {
+  uint64_t q = __double2ull_rz(__ull2double_rn(a) * rb);
+  const uint64_t qb = q * b;
+  if (qb > a) {
+    --q;
+  } else if (a - qb >= b) {
+    ++q;
+  }
+  return q;
+}
+
+template <bool kFits53>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lens,
+              const int32_t* __restrict__ init_cum, uint8_t* __restrict__ out, int B, int W,
+              int k, int delta, int freq_max, int cb) {
+  __shared__ int tree[rxt::kTreeInts];
+  const int x = threadIdx.x;
+  const int blk = blockIdx.x * kThreads + x;
+  if (blk >= B) return;  // no barrier below: each thread owns its tree
+  const rxt::Fenwick fw{tree + x};
+  fw.init(init_cum);
+  const uint32_t base = init_cum[0];
+  uint64_t count = static_cast<uint32_t>(init_cum[kNodes]);
+  double rc = kFits53 ? __drcp_rn(static_cast<double>(count)) : 0.0;
   const uint64_t cmax = (1ull << cb) - 1;
-  BitReader rd{words + static_cast<size_t>(blk) * W, W};
+  BitReader rd(words + static_cast<size_t>(blk) * W, W);
   uint64_t low = 0, high = cmax;
   uint64_t z = rd.get(cb);
   int len = lens[blk];
   len = len > k ? k : len;
-  const size_t row = static_cast<size_t>(blk) * k;
-  for (int t0 = 0; t0 < k; t0 += 32) {
-    int my_sym = 0;
-    const int n = len - t0 < 32 ? len - t0 : 32;  // may be <= 0
-    for (int j = 0; j < n; ++j) {
-      const uint64_t range = high - low + 1;
-      uint64_t value = ((z + 1) * count - 1) / range;
-      value = value < count - 1 ? value : count - 1;
-      const int v = static_cast<int>(value);
-      int c = 0;
+  uint8_t* orow = out + static_cast<size_t>(blk) * k;
+  for (int t0 = 0; t0 < k; t0 += 16) {
+    uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;  // symbols t0 .. t0+15, little-endian
+    for (int j = 0; j < 16; ++j) {
+      uint32_t sym = 0;
+      if (t0 + j < len) {
+        const uint64_t range = high - low + 1;
+        const uint64_t a = (z + 1) * count - 1;
+        uint64_t value = kFits53 ? div53(a, range, __drcp_rn(static_cast<double>(range)))
+                                 : a / range;
+        value = value < count - 1 ? value : count - 1;
+        // Descent: the largest pos with prefix(pos) <= value - base, three
+        // levels a round (steps 4s, 2s, s): the 7 nodes below pos load
+        // together, so 3 rounds of dependent loads instead of 9.
+        uint32_t rem = static_cast<uint32_t>(value) - base;
+        int pos = 0;
 #pragma unroll
-      for (int q = 0; q < rxt::kRegs; ++q) c += __popc(__ballot_sync(rxt::kFull, r[q] <= v));
-      const int sym = c - 1;
-      const uint64_t flo = static_cast<uint32_t>(rxt::row_at(r, sym));
-      const uint64_t fhi = static_cast<uint32_t>(rxt::row_at(r, sym + 1));
-      const uint64_t dlo = range * flo / count;  // narrow with the pre-update count
-      high = low + range * fhi / count - 1;
-      low += dlo;
-      z -= dlo;
-      if (count < static_cast<uint64_t>(freq_max)) {
-        rxt::add_above(r, sym, delta, lane);
-        count += delta;
+        for (int s = 64; s >= 1; s >>= 3) {
+          // n[1] = node pos + 4s; n[2 + a] = pos + 4s*a + 2s; n[4 + 2a + b] =
+          // pos + 4s*a + 2s*b + s, for the decisions a, b taken above it.
+          uint32_t n[8];
+#pragma unroll
+          for (int j = 1; j < 8; ++j) {
+            const int lvl = j >= 4 ? 2 : (j >= 2 ? 1 : 0);
+            const int idx = pos + ((j - (1 << lvl)) << (3 - lvl)) * s + (4 * s >> lvl);
+            n[j] = idx <= kNodes ? static_cast<uint32_t>(fw.node(idx)) : 0xFFFFFFFFu;
+          }
+          const bool a = n[1] <= rem;
+          pos += a ? 4 * s : 0;
+          rem -= a ? n[1] : 0;
+          const uint32_t c1 = a ? n[3] : n[2];
+          const bool b = c1 <= rem;
+          pos += b ? 2 * s : 0;
+          rem -= b ? c1 : 0;
+          const uint32_t c2 = a ? (b ? n[7] : n[6]) : (b ? n[5] : n[4]);
+          const bool c = c2 <= rem;
+          pos += c ? s : 0;
+          rem -= c ? c2 : 0;
+        }
+        sym = pos;
+        // freq(sym): node p = sym + 1 less the nodes below it on its path,
+        // which are p - 2^q for every q under p's trailing zero count.
+        const int p = pos + 1;
+        const int tz = __ffs(p) - 1;
+        uint32_t f = fw.node(p);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (q < tz) f -= fw.node(p - (1 << q));
+        }
+        // The update walk's nodes, loaded now and stored after the narrowing.
+        int up_i[9];
+        int up_v[9];
+        {
+          int u = p;
+#pragma unroll
+          for (int q = 0; q < 9; ++q) {
+            up_i[q] = u;
+            up_v[q] = u <= kNodes ? fw.node(u) : 0;
+            u += u <= kNodes ? lowbit(u) : 0;
+          }
+        }
+        const uint64_t flo = static_cast<uint32_t>(value) - rem;
+        const uint64_t fhi = flo + f;
+        uint64_t dlo, dhi;  // narrow with the pre-update count
+        if (kFits53) {
+          dlo = div53(range * flo, count, rc);
+          dhi = div53(range * fhi, count, rc);
+        } else {
+          dlo = range * flo / count;
+          dhi = range * fhi / count;
+        }
+        high = low + dhi - 1;
+        low += dlo;
+        z -= dlo;
+        const rxt::Renorm rn = rxt::renorm(low, high, cb);
+        int nbits = rn.n1 + rn.n3;
+        nbits = nbits < cb ? nbits : cb;  // n1 + n3 <= code_bits on a valid stream
+        z = ((z << nbits) | rd.get(nbits)) & cmax;
+        if (count < static_cast<uint64_t>(freq_max)) {  // the same on every lane
+#pragma unroll
+          for (int q = 0; q < 9; ++q) {
+            if (up_i[q] <= kNodes) fw.node(up_i[q]) = up_v[q] + delta;
+          }
+          count += delta;
+          if (kFits53) rc = __drcp_rn(static_cast<double>(count));  // for the next symbol
+        }
       }
-      const rxt::Renorm rn = rxt::renorm(low, high, cb);
-      int nbits = rn.n1 + rn.n3;
-      nbits = nbits < cb ? nbits : cb;  // n1 + n3 <= code_bits on a valid stream
-      z = ((z << nbits) | rd.get(nbits)) & cmax;
-      if (lane == j) my_sym = sym;
+      w0 = __funnelshift_r(w0, w1, 8);
+      w1 = __funnelshift_r(w1, w2, 8);
+      w2 = __funnelshift_r(w2, w3, 8);
+      w3 = __funnelshift_r(w3, sym, 8);
     }
-    if (t0 + lane < k) out[row + t0 + lane] = static_cast<uint8_t>(my_sym);
+    if ((k & 15) == 0) {
+      *reinterpret_cast<uint4*>(orow + t0) = make_uint4(w0, w1, w2, w3);
+    } else {
+      const uint32_t ws[4] = {w0, w1, w2, w3};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (t0 + j < k) orow[t0 + j] = static_cast<uint8_t>(ws[j >> 2] >> (8 * (j & 3)));
+      }
+    }
   }
 }
 
@@ -102,12 +216,12 @@ __global__ void decode_kernel(const uint32_t* __restrict__ words,
 
 RXT_API int rxt_decode_blocks(const void* words, const void* lens, const void* init_cum,
                               void* out, int B, int W, int k, int delta, int freq_max,
-                              int code_bits, int device, void* stream) {
+                              int code_bits, int fits53, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  constexpr int kWarps = 4;  // blocks per CTA
-  const int grid = (B + kWarps - 1) / kWarps;
-  decode_kernel<<<grid, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int grid = (B + kThreads - 1) / kThreads;
+  auto kernel = fits53 ? decode_kernel<true> : decode_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const int32_t*>(lens),
       static_cast<const int32_t*>(init_cum), static_cast<uint8_t*>(out), B, W, k, delta,
       freq_max, code_bits);

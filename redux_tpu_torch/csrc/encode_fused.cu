@@ -11,15 +11,15 @@
 // Output: K2's triple (words, byte_lens, ovf), bit for bit.
 //
 // Design: one warp per block.  The model row lives in the warp's registers
-// exactly as in K1 (9 entries a lane, common.cuh): lo/hi are two register
-// selects plus a shuffle and the update 9 predicated adds a lane.  The coder
-// step (rxt::Coder) then runs warp-uniformly: every lane carries the same
-// low/high/pending and bit accumulator, as K3's lanes carry the decoder's,
-// so nothing is broadcast; lane 0 alone stores the words (the others have a
-// writer of capacity 0) and the lanes share the zero fill past the stream.
+// (9 entries a lane, common.cuh): lo/hi are two register selects plus a
+// shuffle and the update 9 predicated adds a lane.  The coder step
+// (rxt::Coder) then runs warp-uniformly: every lane carries the same
+// low/high/pending and bit accumulator, so nothing is broadcast; lane 0
+// alone stores the words (the others have a writer of capacity 0) and the
+// lanes share the zero fill past the stream.
 // The (B, K) lo/hi planes that K1 writes and K2 reads back (8 bytes each
 // way per input byte) never exist: the kernel reads 1 byte a symbol.
-// What bounds it: one warp's serial chain a symbol, K1's row work (about 30
+// What bounds it: one warp's serial chain a symbol, the row work (about 30
 // dependent instructions) plus K2's coder step (two 64-bit divisions and
 // about 60 more); the model step of position t+1 does not depend on the
 // coder step of t, so the compiler may overlap the two.  16384 warps for

@@ -13,15 +13,12 @@
 // Output: K2's triple (words, byte_lens, ovf), bit for bit.
 //
 // Design: one thread per block, kept apart from K1/K4's warp-held row.  The
-// block's 257 symbol frequencies are a Fenwick tree in shared memory, the
-// layout of the reference library's own model (redux_tpu/models/fenwick.py):
-// node i (1-based) holds the frequencies of symbols i - lowbit(i) .. i - 1,
-// so cdf[v] = init_cum[0] + prefix(v).  One walk down the shared path gives
-// both bounds (at most 9 + 9 reads), and +delta on freq[v] is at most 9
-// writes.  Node i of the thread with index x sits at tree[(i - 1) * 32 + x]
-// with 32 threads a CTA, so every access of a warp hits 32 distinct banks
-// whatever the symbols.  The total is a register.  The coder step and the
-// emission are rxt::Coder (common.cuh), shared with K2 and K4.
+// block's model is rxt::Fenwick (common.cuh, shared with K3): a Fenwick
+// tree of its 257 frequencies in shared memory, one column a thread.  One
+// walk down the shared path gives both bounds (at most 9 + 9 reads), and
+// +delta on freq[v] is at most 9 writes.  The total is a register.  The
+// coder step and the emission are rxt::Coder (common.cuh), shared with K2
+// and K4.
 // What bounds it: one thread's serial chain a symbol (the dependent shared
 // memory walk, then K2's coder step with two 64-bit divisions); 33 KB of
 // shared memory a CTA of 32 blocks, so up to 6 CTAs an SM and 16384 blocks
@@ -30,10 +27,9 @@
 
 namespace {
 
-constexpr int kThreads = 32;             // blocks per CTA: one bank each
-constexpr int kNodes = rxt::kRow - 1;    // Fenwick nodes 1..257
-
-__device__ __forceinline__ int lowbit(int i) { return i & -i; }
+using rxt::kNodes;
+using rxt::lowbit;
+constexpr int kThreads = rxt::kTreeThreads;
 
 __global__ void encode_m_kernel(const uint8_t* __restrict__ syms,
                                 const int32_t* __restrict__ lens,
@@ -41,14 +37,12 @@ __global__ void encode_m_kernel(const uint8_t* __restrict__ syms,
                                 uint32_t* __restrict__ words, int32_t* __restrict__ byte_lens,
                                 uint8_t* __restrict__ ovf_out, int B, int K, int n_words,
                                 int delta, int freq_max, int cb) {
-  __shared__ int tree[kNodes * kThreads];
+  __shared__ int tree[rxt::kTreeInts];
   const int x = threadIdx.x;
   const int blk = blockIdx.x * kThreads + x;
   if (blk >= B) return;  // no barrier below: each thread owns its tree
-  int* node = tree + x;  // node[(i - 1) * kThreads] is node i (1-based)
-  for (int i = 1; i <= kNodes; ++i) {
-    node[(i - 1) * kThreads] = init_cum[i] - init_cum[i - lowbit(i)];
-  }
+  const rxt::Fenwick fw{tree + x};
+  fw.init(init_cum);
   const int base = init_cum[0];
   int tot = init_cum[kNodes];
   int len = lens[blk];
@@ -63,18 +57,18 @@ __global__ void encode_m_kernel(const uint8_t* __restrict__ syms,
     int h = v + 1, l = v, sum_h = 0, sum_l = 0;
     while (h != l) {
       if (h > l) {
-        sum_h += node[(h - 1) * kThreads];
+        sum_h += fw.node(h);
         h -= lowbit(h);
       } else {
-        sum_l += node[(l - 1) * kThreads];
+        sum_l += fw.node(l);
         l -= lowbit(l);
       }
     }
     int common = base;
-    for (int i = h; i > 0; i -= lowbit(i)) common += node[(i - 1) * kThreads];
+    for (int i = h; i > 0; i -= lowbit(i)) common += fw.node(i);
     const int count = tot;
     if (tot < freq_max) {
-      for (int i = v + 1; i <= kNodes; i += lowbit(i)) node[(i - 1) * kThreads] += delta;
+      fw.add(v, delta);
       tot += delta;
     }
     coder.step(static_cast<uint32_t>(common + sum_l), static_cast<uint32_t>(common + sum_h),

@@ -7,54 +7,99 @@
 //   tfreeze = max(ceil((freq_max - init_total) / delta), 0).
 // Positions t >= lens[b] still read the (frozen) row, as the TPU kernel does.
 //
-// Design: one warp per block.  The row sits in the warp's registers (9
-// entries a lane, common.cuh); lo/hi are two register selects plus a
-// shuffle, and the suffix update is 9 predicated adds a lane, with no
-// shared memory and no barrier.  One thread per block with a 1 KB row would
-// be right as well but does a 258-step serial update per symbol.
-// Symbols are read 32 positions at a time (one coalesced 32-byte load a
-// warp) and lo/hi written 32 at a time (128-byte stores).
-// What bounds it: the serial dependence of position t+1's row on position
-// t's update — about 30 dependent instructions a symbol per warp; memory
-// traffic is 9 bytes a symbol.  Enough warps in flight (one per block,
-// 16384 for 64 MiB) hide that latency.
+// Design: one warp per block, 32 positions at a time.  Lane j holds
+// position t0 + j and its symbol v_j; R is the row at the start of the
+// chunk and act_i = (t0 + i < upd_end), upd_end = min(lens, tfreeze, K):
+//   lo_j = R[v_j]   + delta * #{i < j : act_i and v_i <  v_j}
+//   hi_j = R[v_j+1] + delta * #{i < j : act_i and v_i <= v_j}
+//   then R[e] += delta * #{i : act_i and v_i < e} for every entry e.
+// R lives in shared memory, 288 ints a warp (258 live), lane l owning the 9
+// contiguous entries 9l .. 9l+8 (stride 9 against 32 banks: the owners'
+// accesses never conflict).  The in-chunk counts are 32 steps of one
+// broadcast shuffle and two compares; the row update is a histogram of the
+// active symbols (shared atomics), an in-lane prefix over the 9 entries, a
+// 5-step warp scan of the lane totals and 9 adds.  About 8 warp
+// instructions a symbol, against about 50 for a position-by-position
+// sweep of a register row.  Symbols are read 32 at a time (one 32-byte
+// load a warp, the next chunk's in flight) and lo/hi written 32 at a time
+// (128-byte stores).
+// What bounds it: instruction issue (16384 warps for 64 MiB); memory
+// traffic is 9 bytes a symbol.
 #include "common.cuh"
 
 namespace {
 
-__global__ void model_values_kernel(const uint8_t* __restrict__ syms,
-                                    const int32_t* __restrict__ lens,
-                                    const int32_t* __restrict__ init_cum,
-                                    int32_t* __restrict__ lo, int32_t* __restrict__ hi,
-                                    int B, int K, int delta, int freq_max) {
-  const int blk = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+constexpr int kWarps = 4;                      // blocks per CTA
+constexpr int kOwn = rxt::kRegs;               // row entries a lane owns
+constexpr int kSlots = 32 * kOwn;              // 288 >= rxt::kRow
+
+__global__ void __launch_bounds__(32 * kWarps)
+model_values_kernel(const uint8_t* __restrict__ syms, const int32_t* __restrict__ lens,
+                    const int32_t* __restrict__ init_cum, int32_t* __restrict__ lo,
+                    int32_t* __restrict__ hi, int B, int K, int delta, int freq_max) {
+  __shared__ int rows[kWarps][kSlots];
+  __shared__ int hist[kWarps][kSlots];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (blk >= B) return;  // uniform over the warp
-  int r[rxt::kRegs];
-  rxt::load_row(init_cum, r, lane);
-  const int init_total = rxt::row_at(r, rxt::kRow - 1);
-  const int tfreeze = rxt::freeze_point(init_total, freq_max, delta);
-  const int len = lens[blk];
-  const int upd_end = len < tfreeze ? len : tfreeze;  // positions t < upd_end adapt
+  const int blk = blockIdx.x * kWarps + warp;
+  if (blk >= B) return;  // uniform over the warp; only __syncwarp below
+  int* R = rows[warp];
+  int* H = hist[warp];
+  const int own = lane * kOwn;
+#pragma unroll
+  for (int m = 0; m < kOwn; ++m) {
+    R[own + m] = own + m < rxt::kRow ? init_cum[own + m] : 0;
+    H[own + m] = 0;
+  }
+  __syncwarp();
+  const int tfreeze = rxt::freeze_point(init_cum[rxt::kRow - 1], freq_max, delta);
+  int upd_end = lens[blk];
+  upd_end = upd_end < tfreeze ? upd_end : tfreeze;
+  upd_end = upd_end < K ? upd_end : K;  // positions t < upd_end adapt
   const size_t row = static_cast<size_t>(blk) * K;
+  int v_next = lane < K ? syms[row + lane] : 0;
   for (int t0 = 0; t0 < K; t0 += 32) {
-    const int my_t = t0 + lane;
-    const int my_sym = my_t < K ? syms[row + my_t] : 0;
-    const int n = K - t0 < 32 ? K - t0 : 32;
-    int my_lo = 0, my_hi = 0;
-    for (int j = 0; j < n; ++j) {
-      const int v = __shfl_sync(rxt::kFull, my_sym, j);
-      const int l = rxt::row_at(r, v);
-      const int h = rxt::row_at(r, v + 1);
-      if (lane == j) {
-        my_lo = l;
-        my_hi = h;
+    const int t = t0 + lane;
+    const int v = v_next;
+    if (t0 + 32 < K) v_next = t + 32 < K ? syms[row + t + 32] : 0;
+    int n_act = upd_end - t0;  // active positions of this chunk: the first n_act
+    n_act = n_act < 0 ? 0 : (n_act > 32 ? 32 : n_act);
+    int lt = 0, le = 0;
+    for (int i = 0; i < n_act; ++i) {  // the same trip count on every lane
+      const int vi = __shfl_sync(rxt::kFull, v, i);
+      if (i < lane) {
+        lt += vi < v;
+        le += vi <= v;
       }
-      if (t0 + j < upd_end) rxt::add_above(r, v, delta, lane);
     }
-    if (my_t < K) {
-      lo[row + my_t] = my_lo;
-      hi[row + my_t] = my_hi;
+    if (t < K) {
+      lo[row + t] = R[v] + delta * lt;
+      hi[row + t] = R[v + 1] + delta * le;
+    }
+    if (n_act > 0) {
+      if (lane < n_act) atomicAdd(&H[v], 1);
+      __syncwarp();
+      int h[kOwn];
+      int total = 0;
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) {
+        h[m] = H[own + m];
+        H[own + m] = 0;
+        total += h[m];
+      }
+      int incl = total;  // inclusive scan of the lane totals
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(rxt::kFull, incl, d);
+        if (lane >= d) incl += y;
+      }
+      int below = incl - total;  // active symbols < entry own + m
+#pragma unroll
+      for (int m = 0; m < kOwn; ++m) {
+        R[own + m] += delta * below;
+        below += h[m];
+      }
+      __syncwarp();
     }
   }
 }
@@ -66,7 +111,6 @@ RXT_API int rxt_model_lohi(const void* syms, const void* lens, const void* init_
                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  constexpr int kWarps = 4;  // blocks per CTA
   const int grid = (B + kWarps - 1) / kWarps;
   model_values_kernel<<<grid, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(syms), static_cast<const int32_t*>(lens),

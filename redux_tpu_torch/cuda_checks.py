@@ -39,6 +39,25 @@ SYMBOL_ENCODERS = {
 K = 4096  # block size of the phase-3 checks: the main path's auto size at 64 MiB
 SEED = 7
 
+# The card's peaks for the bounds (NVIDIA H100 SXM at its 700 W limit):
+# device memory 3.35 TB/s (data sheet); int32 arithmetic 64 lanes an SM
+# (Hopper white paper) x 132 SMs x 1.98 GHz boost clock.
+MEM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# Integer operations a symbol of the plain algorithm, each add, compare,
+# shift, multiply or division counted once.  No single PyTorch call
+# computes any of these functions (an adaptive model or an interval coder
+# is a serial state machine per block), so each kernel's library time is
+# None.
+OPS_PER_SYMBOL = {
+    "model_values": 12,  # two row reads, the freeze test, a 9-node Fenwick update
+    "encode": 30,        # count, narrowing (2 mul, 2 div, 4 add), renorm ~12, emission ~8
+    "decode": 50,        # value 5, a 9-step search, encode's narrowing and renorm, update, bit read
+    "encode_fused": 42,  # model_values + encode
+    "encode_m": 42,      # the same function as encode_fused
+}
+ROW_BYTES = 4 * 258  # the int32 initial row
+
 
 def _require(ok: bool, msg: str) -> None:
     if not ok:
@@ -91,6 +110,38 @@ class KernelInputs:
         self.n_words = api._encode_words(params, block_size, delta)
 
 
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the int32 rate, and which bounds."""
+    mem_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    by_bytes = mem_ms >= ops_ms
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(mem_ms, ops_ms),
+            "bound_by": "bytes" if by_bytes else "operations",
+            "bound": "memory" if by_bytes else "ops"}
+
+
+def kernel_bounds(x: KernelInputs, staged: torch.Tensor, klens: torch.Tensor) -> dict:
+    """Each kernel's bytes (every input read once, every output written
+    once), operations and bound at the shapes it runs on ``x``; K3 reads
+    the ``staged`` words and decodes ``klens`` symbols a block."""
+    b, k = x.syms.shape
+    n = b * k
+    coded = int(x.lens.clamp(0, k).sum())
+    decoded = int(klens.clamp(0, k).sum())
+    lens_b = 4 * b
+    triple = 4 * b * x.n_words + 4 * b + b  # words, byte_lens, ovf
+    from_syms = bound(n + lens_b + ROW_BYTES + triple, OPS_PER_SYMBOL["encode_m"] * coded)
+    return {
+        "model_values": bound(n + lens_b + ROW_BYTES + 8 * n, OPS_PER_SYMBOL["model_values"] * n),
+        "encode": bound(8 * n + lens_b + triple, OPS_PER_SYMBOL["encode"] * coded),
+        "decode": bound(4 * staged.numel() + lens_b + ROW_BYTES + b * x.k,
+                        OPS_PER_SYMBOL["decode"] * decoded),
+        "encode_fused": from_syms,
+        "encode_m": from_syms,
+    }
+
+
 def _max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.numel() == 0:
         return 0
@@ -109,14 +160,17 @@ def triple_err(a, b, n_words: int) -> int:
 def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> dict:
     """Run every kernel and its plain version on ``x``; assert exact
     equality; return per kernel ``max_abs_err``, ``ms`` and ``plain_ms``
-    (each plain version runs once, timed in that run when ``time_plain``).
+    (each plain version runs once, timed in that run when ``time_plain``)
+    and its bound (:func:`kernel_bounds`).
 
     K4 and K5 must also give K2's triple on the same input; where the
     parameters are off their path (not ``fits_u32`` or ``fits_wide32``)
     both wrappers must raise ValueError, and their entry says so.
     K3 decodes K2's streams as the main path stages them: blocks stored
     raw (ovf, or not smaller than raw) get no symbols, the rest must come
-    back as their input bytes.
+    back as their input bytes.  It runs on the lanes in block order and
+    sorted by coded length (the main path's order, ``api.decode``); its
+    ``ms`` is the sorted lanes' time and ``ms_unsorted`` the other.
     """
     p, d = x.params, x.delta
     out = {}
@@ -179,14 +233,22 @@ def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> 
     syms_p, plain_ms = plain_run(lambda: decode_blocks_plain(*dec), time_plain)
     err = _max_abs(syms, syms_p)
     _require(err == 0, f"decode differs from its plain version (max |diff| {err})")
+    order = torch.argsort(torch.where(raw, 0, bl), stable=True)
+    dec_sorted = (staged[order].contiguous(), klens[order].contiguous(), x.init_cum, p, x.k, d)
+    err_sorted = _max_abs(decode_blocks(*dec_sorted), syms_p[order])
+    _require(err_sorted == 0,
+             f"decode on sorted lanes differs from its plain version (max |diff| {err_sorted})")
     ok = ~raw
     _require(torch.equal(torch.where(valid[ok], syms[ok], 0),
                          torch.where(valid[ok], x.syms[ok], 0)), "decode lost the input")
     out["decode"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: decode_blocks(*dec), reps),
+        "max_abs_err": max(err, err_sorted),
+        "ms": cuda_ms(lambda: decode_blocks(*dec_sorted), reps),
+        "ms_unsorted": cuda_ms(lambda: decode_blocks(*dec), reps),
         "plain_ms": plain_ms,
     }
+    for name, b in kernel_bounds(x, staged, klens).items():
+        out[name].update(b)
     out["raw_blocks"] = int(raw.sum())
     out["k2_triple"] = coded
     return out

@@ -11,6 +11,11 @@ Per block: prime ``z`` with ``code_bits`` bits; per symbol
 with ``low``), closed-form renormalisation, and ``n1 + n3`` more bits read
 MSB-first (reads past the end of a row give zero bits).  Words are staged
 block-major ``(B, W)``.
+
+The kernel has two instantiations, chosen by :func:`products_fit_53`:
+quotients from a double reciprocal with a one-step integer correction
+where every dividend stays below ``2**53`` (tpu_wide, tpu32), native u64
+divisions otherwise (the reference CLI's (8,30,32)).
 """
 
 from __future__ import annotations
@@ -22,6 +27,15 @@ from ..params import Parameters
 from .coder import M32, check_code_bits, expect, kernel_device, mask, renorm_plain
 
 launches = 0  # kernel launches of decode_blocks (CUDA tensors only)
+MAX_DELTA = 255  # the largest adaptation increment; count overshoots by delta - 1 at most
+
+
+def products_fit_53(params: Parameters) -> bool:
+    """True when every dividend of the decoder stays below ``2**53``:
+    ``(z + 1) * count`` and ``range * fhi`` are below
+    ``2**code_bits * (freq_max + MAX_DELTA)``, and a double reciprocal
+    then gives each quotient within one."""
+    return params.code_bits + (params.freq_max + MAX_DELTA - 1).bit_length() <= 53
 
 
 def decode_blocks_plain(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
@@ -108,7 +122,8 @@ def decode_blocks(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tenso
     lib = _build.lib()
     err = lib.rxt_decode_blocks(
         words.data_ptr(), lens.data_ptr(), init_cum.data_ptr(), out.data_ptr(), b, w, k,
-        delta, params.freq_max, params.code_bits, dev.index or 0, _build.stream_of(dev),
+        delta, params.freq_max, params.code_bits, int(products_fit_53(params)), dev.index or 0,
+        _build.stream_of(dev),
     )
     _build.check(err, "rxt_decode_blocks")
     launches += 1

@@ -3,6 +3,7 @@ reference's archive bytes, each package decodes the other's archives, and
 corrupted archives raise InvalidInputError in both."""
 
 import pytest
+import torch
 
 from redux_tpu import api as ref_api
 from redux_tpu.params import Parameters as RefParameters
@@ -101,6 +102,36 @@ def test_auto_block_size_follows_reference_quantum():
         assert api._auto_block_size(n, LANES * PHASES) == ref_api._auto_block_size(n)
     assert api._auto_block_size(64 << 20) == 4096
     assert -(-(64 << 20) // api._auto_block_size(64 << 20)) == 16384
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """``encode(data)`` / ``decode(arch)`` with no ``device`` never run the
+    plain versions: without CUDA they raise; with CUDA they launch the
+    kernels and give the CPU path's bytes."""
+    import redux_tpu_torch
+    from redux_tpu_torch.ops import decode as dec_op
+    from redux_tpu_torch.ops import model as model_op
+
+    data = text_like(9000, 10) + incompressible(1500, 10)
+    arch_cpu = api.encode(data, device="cpu", block_size=2048)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran without device='cpu'")
+
+    monkeypatch.setattr(model_op, "model_lohi_plain", refuse)
+    monkeypatch.setattr(dec_op, "decode_blocks_plain", refuse)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            redux_tpu_torch.encode(data, block_size=2048)
+        with pytest.raises(RuntimeError, match="cuda"):
+            redux_tpu_torch.decode(arch_cpu)
+        return
+    redux_tpu_torch.reset_launch_counts()
+    arch = redux_tpu_torch.encode(data, block_size=2048)
+    assert redux_tpu_torch.decode(arch) == data
+    counts = redux_tpu_torch.launch_counts()
+    assert counts["model_values"] > 0 and counts["decode"] > 0, counts
+    assert arch == arch_cpu
 
 
 def test_rejects_what_the_reference_rejects():

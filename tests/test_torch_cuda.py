@@ -52,6 +52,41 @@ def test_main_path_launches_every_kernel(cuda_device):
 
 
 @pytest.mark.cuda
+def test_default_device_runs_the_kernels(cuda_device):
+    """With no ``device`` argument the entry points run on the card: the
+    kernels launch and the archive is the CPU path's."""
+    import redux_tpu_torch
+    from redux_tpu_torch import testdata
+
+    data = testdata.mixed(1 << 20, 8)
+    redux_tpu_torch.reset_launch_counts()
+    arch = redux_tpu_torch.encode(data)
+    assert redux_tpu_torch.decode(arch) == data
+    counts = redux_tpu_torch.launch_counts()
+    assert counts["model_values"] > 0 and counts["encode"] > 0 and counts["decode"] > 0, counts
+    assert arch == redux_tpu_torch.encode(data, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,delta,k", [((8, 20, 22), 16, 4096), ((8, 30, 32), 7, 1024)])
+def test_decoder_sorted_and_unsorted_lanes(cuda_device, cfg, delta, k):
+    """K3 on lanes in block order and sorted by coded length (the main
+    path's staging) against its plain version, in both instantiations:
+    reciprocal quotients at tpu_wide, u64 divisions at (8,30,32)."""
+    from redux_tpu_torch import cuda_checks
+    from redux_tpu_torch.ops.decode import products_fit_53
+    from redux_tpu_torch.params import Parameters
+
+    params = Parameters(*cfg)
+    assert products_fit_53(params) == (cfg == (8, 20, 22))
+    data = cuda_checks.phase3_data(96, k, 13)
+    x = cuda_checks.KernelInputs(data, params, delta, k, cuda_device)
+    res = cuda_checks.compare_kernels(x, time_plain=False, reps=1)
+    assert res["decode"]["max_abs_err"] == 0
+    assert res["decode"]["ms"] > 0 and res["decode"]["ms_unsorted"] > 0
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_mixed_devices(cuda_device):
     from redux_tpu_torch.ops.model import model_lohi
     from redux_tpu_torch.params import Parameters

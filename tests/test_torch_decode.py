@@ -1,6 +1,9 @@
 """K3 (decoder): the port's plain version against the reference's Pallas
 decoder in interpret mode (``decode_blocks_pallas``) on the sequential
-oracle's v2 streams.  Exact equality of the decoded symbols."""
+oracle's v2 streams.  Exact equality of the decoded symbols.  Also the
+CUDA kernel's algebra, emulated in numpy: the Fenwick descent and
+``freq(sym)`` against the row search, the reciprocal quotients against
+integer division, and the choice of the kernel's instantiation."""
 
 import numpy as np
 import pytest
@@ -14,7 +17,7 @@ from redux_tpu.ops.pallas_decode import decode_blocks_pallas
 from redux_tpu.params import Parameters as RefParameters
 
 from redux_tpu_torch.ops.coder import bytes_to_words
-from redux_tpu_torch.ops.decode import decode_blocks
+from redux_tpu_torch.ops.decode import decode_blocks, products_fit_53
 from redux_tpu_torch.params import Parameters
 
 
@@ -103,6 +106,223 @@ def test_decoder_streams_ending_on_word_boundary():
     for b in blocks:  # one block per call: its row ends where its stream ends
         (s,) = _check([b], cfg, ic, delta, 320, extra_words=0)
         assert len(s) % 4 == 0
+
+
+NODES = 257  # Fenwick nodes 1..257 over the 257 symbol frequencies
+
+
+def _lowbit(i):
+    return i & -i
+
+
+def _tree(cdf):
+    """Node i holds the frequencies of symbols i - lowbit(i) .. i - 1."""
+    node = [0] * (NODES + 1)
+    for i in range(1, NODES + 1):
+        node[i] = int(cdf[i] - cdf[i - _lowbit(i)])
+    return node
+
+
+def _descent(node, value, base):
+    """The kernel's symbol search: steps 256 .. 1, a node taken while its
+    sum is <= the remainder, three levels a round (the 7 nodes below pos
+    read together); then ``freq(sym)`` as node p = sym + 1 less the nodes
+    p - 2**q, q under p's trailing zero count.  Returns (sym, flo, fhi)."""
+    pos, rem, s = 0, value - base, 64
+    while s:
+        n = {}
+        for j in range(1, 8):
+            lvl = 2 if j >= 4 else (1 if j >= 2 else 0)
+            idx = pos + ((j - (1 << lvl)) << (3 - lvl)) * s + ((4 * s) >> lvl)
+            n[j] = node[idx] if idx <= NODES else 2**32 - 1
+        j = 1
+        for lvl in range(3):  # a, then b, then c of the kernel
+            take = n[j] <= rem
+            pos, rem = pos + (((4 * s) >> lvl) if take else 0), rem - (n[j] if take else 0)
+            j = 2 * j + take
+        s >>= 3
+    p = pos + 1
+    tz = (p & -p).bit_length() - 1
+    f = node[p] - sum(node[p - (1 << q)] for q in range(tz))
+    flo = value - rem
+    return pos, flo, flo + f
+
+
+def _add(node, v, d):
+    i = v + 1
+    while i <= NODES:
+        node[i] += d
+        i += _lowbit(i)
+
+
+@pytest.mark.parametrize("cfg,delta", [((8, 20, 22), 16), ((8, 15, 17), 255), ((8, 14, 16), 64)])
+def test_fenwick_descent_equals_the_row_search(cfg, delta):
+    """Over random adapted rows with zero-width neighbours, adapted past
+    the freeze (count overshoots freq_max), the descent gives
+    ``(cdf <= value).sum() - 1``, ``cdf[sym]`` and ``cdf[sym + 1]`` for
+    every boundary value, ``count - 1`` and random values."""
+    p = Parameters(*cfg)
+    rng = np.random.default_rng(cfg[1] + delta)
+    freq = rng.integers(0, 40, 257)
+    freq[rng.integers(0, 257, 60)] = 0  # zero-width symbols, some neighbouring
+    freq[100:104] = 0
+    freq[255:] = [0, 1]
+    cdf = np.concatenate([[0], np.cumsum(freq)]).astype(np.int64)
+    node = _tree(cdf)
+
+    def check():
+        count = int(cdf[-1])
+        values = {0, count - 1, *rng.integers(0, count, 40).tolist()}
+        values |= {int(c) for c in cdf if c < count} | {int(c) - 1 for c in cdf if 0 < c}
+        for value in sorted(values):
+            sym = int((cdf <= value).sum()) - 1
+            assert _descent(node, value, 0) == (sym, cdf[sym], cdf[sym + 1]), value
+
+    updates = 0
+    while cdf[-1] < p.freq_max:  # the kernel's update rule, dense and as a tree
+        if updates % 97 == 0:
+            check()
+        v = int(rng.choice([0, 7, 101, 255, 256, *rng.integers(0, 257, 3).tolist()]))
+        cdf[v + 1 :] += delta
+        _add(node, v, delta)
+        updates += 1
+    assert cdf[-1] > p.freq_max  # the freeze overshoot
+    check()
+    assert node == _tree(cdf)
+
+
+def _div53(a, b):
+    """The kernel's quotient for dividends below 2**53: the truncated
+    product with the rounded reciprocal, corrected by one."""
+    q = (a.astype(np.float64) * (1.0 / b.astype(np.float64))).astype(np.uint64)
+    qb = q * b
+    over = qb > a
+    q = np.where(over, q - np.uint64(1), q)
+    under = ~over & (a - np.where(over, a, qb) >= b)
+    return np.where(under, q + np.uint64(1), q)
+
+
+@pytest.mark.parametrize("cfg", [(8, 20, 22), (8, 15, 17)])
+def test_reciprocal_quotient_is_exact(cfg):
+    """Random and boundary pairs (a = q*b - 1, q*b, q*b + b - 1) over every
+    divisor and dividend the decoder reaches at this configuration:
+    divisors up to 2**code_bits (the range) and freq_max + 254 (the count),
+    dividends below 2**code_bits * (freq_max + 255)."""
+    p = Parameters(*cfg)
+    assert products_fit_53(p)
+    rng = np.random.default_rng(cfg[2])
+    a_max = (1 << p.code_bits) * (p.freq_max + 255)
+    assert a_max <= 1 << 53
+    b_max = max(1 << p.code_bits, p.freq_max + 254)
+    n = 200_000
+    b = np.concatenate([
+        rng.integers(1, b_max + 1, n, dtype=np.uint64),
+        rng.integers(1, 64, n // 4, dtype=np.uint64),
+        np.uint64(b_max) - rng.integers(0, 64, n // 4, dtype=np.uint64),
+        np.array([1, 2, 3, 1 << p.code_bits, p.freq_max, p.freq_max + 254], np.uint64),
+    ])
+    q_max = np.uint64(a_max - 1) // b
+    q = (rng.random(b.size) * (q_max.astype(np.float64) + 1)).astype(np.uint64)
+    q = np.minimum(np.maximum(q, 1), q_max)
+    q[::7] = q_max[::7]
+    for a in (q * b - np.uint64(1), q * b, q * b + b - np.uint64(1),
+              rng.integers(0, a_max, b.size, dtype=np.uint64)):
+        a = np.minimum(a, np.uint64(a_max - 1))
+        np.testing.assert_array_equal(_div53(a, b), a // b)
+
+
+def test_products_fit_53_routes_the_instantiations(monkeypatch):
+    """The wrapper's 53-bit test: tpu_wide and tpu32 take the reciprocal
+    instantiation, the reference CLI's (8,30,32) the u64 one; the flag is
+    what decode_blocks passes to the kernel."""
+    from redux_tpu_torch import _build
+    from redux_tpu_torch.ops import decode as dec
+
+    assert products_fit_53(Parameters.tpu_wide()) and products_fit_53(Parameters.tpu32())
+    assert not products_fit_53(Parameters.default())
+    # The edge: 32 + bit_length(2**20 - 1 + 254) = 53, 32 + bit_length(2**21 - 1 + 254) = 54.
+    assert products_fit_53(Parameters(8, 20, 32)) and not products_fit_53(Parameters(8, 21, 32))
+
+    seen = []
+
+    class FakeLib:
+        def rxt_decode_blocks(self, *args):
+            seen.append(args)
+            return 0
+
+    monkeypatch.setattr(dec, "kernel_device", lambda dev: True)
+    monkeypatch.setattr(dec, "launches", 0)
+    monkeypatch.setattr(_build, "lib", lambda: FakeLib())
+    monkeypatch.setattr(_build, "stream_of", lambda dev: 0)
+    words = torch.zeros(2, 4, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    for params, fits in ((Parameters.tpu_wide(), 1), (Parameters.tpu32(), 1),
+                         (Parameters.default(), 0)):
+        ic = torch.from_numpy(uniform_init_cum(RefParameters(params.symbol_bits, params.freq_bits,
+                                                             params.code_bits)).astype(np.int32))
+        decode_blocks(words, lens, ic, params, 8, 16)
+        assert seen[-1][10] == fits, params
+
+
+def _decode_block_emulated(words, n_sym, ic, p, delta):
+    """numpy/Python emulation of one thread of ``csrc/decode.cu`` (the
+    reciprocal instantiation): Fenwick descent, ``freq(sym)``, reciprocal
+    quotients, the update after the narrowing with the pre-update count."""
+    cb, cmax = p.code_bits, p.code_max
+    bits = "".join(f"{int(w) & 0xFFFFFFFF:032b}" for w in words)
+    pos_bits = 0
+
+    def read(n):
+        nonlocal pos_bits
+        s = bits[pos_bits : pos_bits + n].ljust(n, "0")
+        pos_bits += n
+        return int(s, 2) if n else 0
+
+    def div(a, b):
+        return int(_div53(np.array([a], np.uint64), np.array([b], np.uint64))[0])
+
+    node = _tree(ic.astype(np.int64))
+    count = int(ic[-1])
+    low, high, z = 0, cmax, read(cb)
+    out = []
+    for _ in range(n_sym):
+        rng = high - low + 1
+        value = min(div((z + 1) * count - 1, rng), count - 1)
+        sym, flo, fhi = _descent(node, value, int(ic[0]))
+        dlo, dhi = div(rng * flo, count), div(rng * fhi, count)
+        high, low, z = low + dhi - 1, low + dlo, z - dlo
+        n1 = max(cb - (low ^ high).bit_length(), 0)
+        low1 = (low << n1) & cmax
+        high1 = ((high << n1) | ((1 << n1) - 1)) & cmax
+        a = 32 - (((low1 << (33 - cb)) & 0xFFFFFFFF) ^ 0xFFFFFFFF).bit_length()
+        b = 32 - ((high1 << (33 - cb)) & 0xFFFFFFFF).bit_length()
+        n3 = min(a, b, cb - 1)
+        low = (low1 << n3) & (cmax >> 1)
+        high = (((high1 << n3) | ((1 << n3) - 1)) & (cmax >> 1)) | (1 << (cb - 1))
+        n = min(n1 + n3, cb)
+        z = ((z << n) | read(n)) & cmax
+        if count < p.freq_max:
+            _add(node, sym, delta)
+            count += delta
+        out.append(sym)
+    return bytes(out)
+
+
+@pytest.mark.parametrize("cfg,delta", [((8, 20, 22), 16), ((8, 14, 16), 64)])
+def test_kernel_algorithm_decodes_reference_streams(cfg, delta):
+    """The emulated kernel thread decodes the sequential oracle's streams,
+    with the freeze engaged at (8,14,16), and equals the plain version."""
+    rp, p = RefParameters(*cfg), Parameters(*cfg)
+    k = 600
+    ic = uniform_init_cum(rp).astype(np.int32)
+    blocks = [b for b in _mixed(17, k) if b]
+    streams = [oracle.compress_block(b, rp, ic.astype(np.int64), delta) for b in blocks]
+    words = _words(streams, 2)
+    lens = torch.tensor([len(b) for b in blocks], dtype=torch.int32)
+    plain = decode_blocks(words, lens, torch.from_numpy(ic), p, k, delta).numpy()
+    for i, b in enumerate(blocks):
+        got = _decode_block_emulated(words[i].numpy(), len(b), ic, p, delta)
+        assert got == b and got == plain[i, : len(b)].tobytes(), f"block {i}"
 
 
 def test_decoder_wrapper_checks():

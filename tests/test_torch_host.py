@@ -201,3 +201,31 @@ def test_port_imports_neither_jax_nor_reference():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
     assert set(redux_tpu_torch.launch_counts()) == {
         "model_values", "encode", "decode", "encode_fused", "encode_m"}
+
+
+def test_build_report_names_each_kernel(tmp_path, monkeypatch):
+    """``_build.resource_usage`` turns ptxas's ``-v`` report of the build
+    into one line a kernel entry, template argument included."""
+    from redux_tpu_torch import _build
+
+    lib = tmp_path / "libk.so"
+    lib.with_suffix(".ptxas.txt").write_text(
+        "== decode.cu\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN41_GLOBAL__N__0ea6ff2b_9_decode_cu_8cfa941d13decode_kernelILb1EEEvPKjPKiS4_Ph' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 74 registers, used 0 barriers, 32896 bytes smem\n"
+        "== model_values.cu\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN48_GLOBAL__N__b73a3eb3_15_model_values_cu_b2ef55d719model_values_kernelEPKhPKi' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 0 barriers, 9216 bytes smem\n")
+    monkeypatch.setattr(_build, "build", lambda: lib)
+    assert _build.resource_usage() == [
+        "decode.cu decode_kernel<true>: Used 74 registers, used 0 barriers, 32896 bytes smem; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "model_values.cu model_values_kernel: Used 32 registers, used 0 barriers, 9216 bytes "
+        "smem; 0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+    ]

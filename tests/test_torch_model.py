@@ -1,6 +1,7 @@
 """K1 (model values): the port's plain version against the reference's
 Pallas kernel in interpret mode (``model_lohi_pallas``), exact equality at
-every position ``t < lens``."""
+every position ``t < lens``; and a numpy emulation of the CUDA kernel's
+32-positions-at-a-time algebra against both."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,7 @@ from redux_tpu.models.dense import prior_init_cum, uniform_init_cum
 from redux_tpu.ops.pallas_model import model_lohi_pallas
 from redux_tpu.params import Parameters as RefParameters
 
-from redux_tpu_torch.ops.model import model_lohi
+from redux_tpu_torch.ops.model import model_lohi, model_lohi_plain
 from redux_tpu_torch.params import Parameters
 
 
@@ -63,6 +64,87 @@ def test_model_values_prior_and_freeze_tpu32():
     ic = prior_init_cum(extra, RefParameters(*cfg)).astype(np.int32)
     assert int(ic[-1]) + 255 * k > RefParameters(*cfg).freq_max
     _check(syms, lens, ic, cfg, 255)
+
+
+def _model_chunked(syms, lens, ic, freq_max, delta):
+    """numpy emulation of the kernel's 32-positions-at-a-time algorithm
+    (``csrc/model_values.cu``): in-chunk ranks over the earlier active
+    lanes, then the row update from a histogram of the active symbols,
+    with lane l owning the 9 contiguous entries 9l .. 9l+8 (an in-lane
+    prefix and an exclusive scan of the lane totals)."""
+    b, k = syms.shape
+    own, slots = 9, 32 * 9
+    init_total = int(ic[-1])
+    tf = max(-(-(freq_max - init_total) // delta), 0)
+    lo = np.zeros((b, k), np.int64)
+    hi = np.zeros((b, k), np.int64)
+    earlier = np.tril(np.ones((32, 32), bool), -1)  # [j, i]: i < j
+    for blk in range(b):
+        row = np.zeros(slots, np.int64)
+        row[: len(ic)] = ic
+        upd_end = min(int(lens[blk]), tf, k)
+        for t0 in range(0, k, 32):
+            n = min(32, k - t0)
+            v = np.zeros(32, np.int64)
+            v[:n] = syms[blk, t0 : t0 + n]
+            n_act = min(max(upd_end - t0, 0), 32)
+            act = np.arange(32) < n_act
+            m = earlier & act[None, :]
+            lt = (m & (v[None, :] < v[:, None])).sum(1)
+            le = (m & (v[None, :] <= v[:, None])).sum(1)
+            lo[blk, t0 : t0 + n] = (row[v] + delta * lt)[:n]
+            hi[blk, t0 : t0 + n] = (row[v + 1] + delta * le)[:n]
+            if n_act:
+                h = np.bincount(v[act], minlength=slots).reshape(32, own)
+                lane_total = h.sum(1)
+                below = np.cumsum(lane_total) - lane_total  # exclusive warp scan
+                in_lane = np.cumsum(h, 1) - h  # exclusive in-lane prefix
+                row += delta * (below[:, None] + in_lane).reshape(-1)
+    return lo, hi
+
+
+def _check_chunked(syms, lens, ic, cfg, delta):
+    """The emulation equals the plain version at every position and the
+    reference's Pallas kernel (interpret mode) at every t < lens."""
+    rp, p = RefParameters(*cfg), Parameters(*cfg)
+    lo_e, hi_e = _model_chunked(syms, lens, ic, p.freq_max, delta)
+    lo_p, hi_p = model_lohi_plain(torch.from_numpy(syms), torch.from_numpy(lens),
+                                  torch.from_numpy(ic), p, delta)
+    np.testing.assert_array_equal(lo_e, lo_p.numpy())
+    np.testing.assert_array_equal(hi_e, hi_p.numpy())
+    lo_r, hi_r = model_lohi_pallas(
+        jnp.asarray(syms.astype(np.int32)), jnp.asarray(lens), jnp.asarray(ic), rp, delta)
+    lo_r, hi_r = np.asarray(lo_r), np.asarray(hi_r)
+    for i, n in enumerate(lens):
+        np.testing.assert_array_equal(lo_e[i, :n], lo_r[i, :n], err_msg=f"lo {i}")
+        np.testing.assert_array_equal(hi_e[i, :n], hi_r[i, :n], err_msg=f"hi {i}")
+
+
+@pytest.mark.parametrize("delta", [1, 16, 255])
+def test_chunked_algebra_tpu_wide(delta):
+    """K1's chunk update at tpu_wide; K = 333 is not a multiple of 32 and
+    the lens end inside chunks."""
+    k = 333
+    syms = _syms(100 + delta, 9, k)
+    syms[5, 40:72] = 9  # one symbol over a whole chunk
+    lens = np.array([k, k, k, k, k, 0, 1, 77, k - 1], np.int32)
+    ic = uniform_init_cum(RefParameters.tpu_wide()).astype(np.int32)
+    _check_chunked(syms, lens, ic, (8, 20, 22), delta)
+
+
+def test_chunked_algebra_tpu32_freeze_inside_a_chunk():
+    """tpu32 with a prior: the freeze lands inside a chunk (tfreeze not a
+    multiple of 32), and the last block is short."""
+    cfg, delta, k = (8, 15, 17), 255, 300
+    rng = np.random.default_rng(21)
+    extra = np.zeros(257, np.int64)
+    extra[:256] = rng.integers(0, 40, 256)
+    ic = prior_init_cum(extra, RefParameters(*cfg)).astype(np.int32)
+    tf = -(-(RefParameters(*cfg).freq_max - int(ic[-1])) // delta)
+    assert 0 < tf < k and tf % 32 != 0
+    syms = _syms(13, 5, k)
+    lens = np.array([k, k, tf + 3, tf - 1, 131], np.int32)
+    _check_chunked(syms, lens, ic, cfg, delta)
 
 
 def test_model_values_wrapper_checks():
