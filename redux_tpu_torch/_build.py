@@ -38,8 +38,8 @@ SIGNATURES = {
     # syms, lens, init_cum, lo, hi, B, K, delta, freq_max, device, stream
     "rxt_model_lohi": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # lo, hi, lens, words, byte_lens, ovf, B, K, n_words, init_total,
-    # tfreeze, delta, code_bits, device, stream
-    "rxt_encode_blocks": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # tfreeze, delta, code_bits, fits53, device, stream
+    "rxt_encode_blocks": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # words, lens, init_cum, out, B, W, k, delta, freq_max, code_bits,
     # fits53, device, stream
     "rxt_decode_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

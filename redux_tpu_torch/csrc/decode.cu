@@ -29,11 +29,10 @@
 // - count does not depend on the symbols (it grows by delta a position
 //   until freq_max), so its reciprocal for the next symbol is taken off
 //   the chain, and one reciprocal serves both bounds;
-// - where every dividend stays below 2^53 (kFits53, chosen by the wrapper
-//   from code_bits + bit_length(freq_max + 254) <= 53), a quotient is a
-//   double reciprocal times the dividend, truncated, then corrected by one
-//   (|error| < 1 there, so the result is exact); otherwise (e.g. the CLI's
-//   (8,30,32), products up to 2^62) native u64 divisions;
+// - every quotient is rxt::quotient (common.cuh): where every dividend
+//   stays below 2^53 (kFits53) a double reciprocal times the dividend,
+//   truncated, then corrected by one, otherwise (the CLI's (8,30,32))
+//   native u64 divisions;
 // - the bit reader keeps the block's next word in flight one word ahead;
 //   symbols collect in a 16-byte register window and are stored 16 at a
 //   time (k a multiple of 16; byte stores otherwise).
@@ -75,19 +74,6 @@ struct BitReader {
   }
 };
 
-// floor(a / b) for a < 2^53 from rb = 1/b rounded: the truncated product is
-// within one of the quotient, and one integer test corrects it.
-__device__ __forceinline__ uint64_t div53(uint64_t a, uint64_t b, double rb) {
-  uint64_t q = __double2ull_rz(__ull2double_rn(a) * rb);
-  const uint64_t qb = q * b;
-  if (qb > a) {
-    --q;
-  } else if (a - qb >= b) {
-    ++q;
-  }
-  return q;
-}
-
 template <bool kFits53>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lens,
@@ -116,8 +102,8 @@ decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ le
       if (t0 + j < len) {
         const uint64_t range = high - low + 1;
         const uint64_t a = (z + 1) * count - 1;
-        uint64_t value = kFits53 ? div53(a, range, __drcp_rn(static_cast<double>(range)))
-                                 : a / range;
+        uint64_t value = rxt::quotient<kFits53>(
+            a, range, kFits53 ? __drcp_rn(static_cast<double>(range)) : 0.0);
         value = value < count - 1 ? value : count - 1;
         // Descent: the largest pos with prefix(pos) <= value - base, three
         // levels a round (steps 4s, 2s, s): the 7 nodes below pos load
@@ -171,14 +157,9 @@ decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ le
         }
         const uint64_t flo = static_cast<uint32_t>(value) - rem;
         const uint64_t fhi = flo + f;
-        uint64_t dlo, dhi;  // narrow with the pre-update count
-        if (kFits53) {
-          dlo = div53(range * flo, count, rc);
-          dhi = div53(range * fhi, count, rc);
-        } else {
-          dlo = range * flo / count;
-          dhi = range * fhi / count;
-        }
+        // Narrow with the pre-update count.
+        const uint64_t dlo = rxt::quotient<kFits53>(range * flo, count, rc);
+        const uint64_t dhi = rxt::quotient<kFits53>(range * fhi, count, rc);
         high = low + dhi - 1;
         low += dlo;
         z -= dlo;

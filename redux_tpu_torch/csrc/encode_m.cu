@@ -16,11 +16,13 @@
 // block's model is rxt::Fenwick (common.cuh, shared with K3): a Fenwick
 // tree of its 257 frequencies in shared memory, one column a thread.  One
 // walk down the shared path gives both bounds (at most 9 + 9 reads), and
-// +delta on freq[v] is at most 9 writes.  The total is a register.  The
-// coder step and the emission are rxt::Coder (common.cuh), shared with K2
-// and K4.
+// +delta on freq[v] is at most 9 writes.  The total is a register, and
+// its reciprocal for the next symbol is taken with the update.  The coder
+// step and the emission are rxt::Coder (common.cuh), shared with K2 and K4:
+// the kFits53 step, since the parameters K5 takes (fits_u32 or
+// fits_wide32) keep every dividend below 2^53.
 // What bounds it: one thread's serial chain a symbol (the dependent shared
-// memory walk, then K2's coder step with two 64-bit divisions); 33 KB of
+// memory walk, then K2's coder step); 33 KB of
 // shared memory a CTA of 32 blocks, so up to 6 CTAs an SM and 16384 blocks
 // for 64 MiB all resident at once.
 #include "common.cuh"
@@ -45,6 +47,7 @@ __global__ void encode_m_kernel(const uint8_t* __restrict__ syms,
   fw.init(init_cum);
   const int base = init_cum[0];
   int tot = init_cum[kNodes];
+  double rc = __drcp_rn(static_cast<double>(tot));
   int len = lens[blk];
   len = len > K ? K : len;
   const uint8_t* srow = syms + static_cast<size_t>(blk) * K;
@@ -67,15 +70,17 @@ __global__ void encode_m_kernel(const uint8_t* __restrict__ syms,
     int common = base;
     for (int i = h; i > 0; i -= lowbit(i)) common += fw.node(i);
     const int count = tot;
+    const double rcount = rc;
     if (tot < freq_max) {
       fw.add(v, delta);
       tot += delta;
+      rc = __drcp_rn(static_cast<double>(tot));  // for the next symbol
     }
-    coder.step(static_cast<uint32_t>(common + sum_l), static_cast<uint32_t>(common + sum_h),
-               static_cast<uint32_t>(count));
+    coder.step<true>(static_cast<uint32_t>(common + sum_l), static_cast<uint32_t>(common + sum_h),
+                     static_cast<uint32_t>(count), rcount);
   }
   if (len >= 0) coder.terminate();  // the terminator at t == lens
-  coder.finish(row, n_words, byte_lens + blk, ovf_out + blk, 0, 1);
+  coder.finish(row, n_words, byte_lens + blk, ovf_out + blk);
 }
 
 }  // namespace

@@ -7,31 +7,24 @@
 //   tfreeze = max(ceil((freq_max - init_total) / delta), 0).
 // Positions t >= lens[b] still read the (frozen) row, as the TPU kernel does.
 //
-// Design: one warp per block, 32 positions at a time.  Lane j holds
-// position t0 + j and its symbol v_j; R is the row at the start of the
-// chunk and act_i = (t0 + i < upd_end), upd_end = min(lens, tfreeze, K):
-//   lo_j = R[v_j]   + delta * #{i < j : act_i and v_i <  v_j}
-//   hi_j = R[v_j+1] + delta * #{i < j : act_i and v_i <= v_j}
-//   then R[e] += delta * #{i : act_i and v_i < e} for every entry e.
-// R lives in shared memory, 288 ints a warp (258 live), lane l owning the 9
-// contiguous entries 9l .. 9l+8 (stride 9 against 32 banks: the owners'
-// accesses never conflict).  The in-chunk counts are 32 steps of one
-// broadcast shuffle and two compares; the row update is a histogram of the
-// active symbols (shared atomics), an in-lane prefix over the 9 entries, a
-// 5-step warp scan of the lane totals and 9 adds.  About 8 warp
-// instructions a symbol, against about 50 for a position-by-position
-// sweep of a register row.  Symbols are read 32 at a time (one 32-byte
-// load a warp, the next chunk's in flight) and lo/hi written 32 at a time
-// (128-byte stores).
+// Design: one warp per block, 32 positions at a time: rxt::model_chunk
+// (common.cuh, shared with K4), with the active positions of a chunk those
+// below upd_end = min(lens, tfreeze, K).  The row lives in shared memory,
+// 288 ints a warp (258 live).  The in-chunk counts are 32 steps of one
+// broadcast shuffle and two compares; the row update is a histogram, an
+// in-lane prefix, a warp scan and 9 adds.  About 8 warp instructions a
+// symbol, against about 50 for a position-by-position sweep of a register
+// row.  Symbols are read 32 at a time (one 32-byte load a warp, the next
+// chunk's in flight) and lo/hi written 32 at a time (128-byte stores).
 // What bounds it: instruction issue (16384 warps for 64 MiB); memory
 // traffic is 9 bytes a symbol.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;                      // blocks per CTA
-constexpr int kOwn = rxt::kRegs;               // row entries a lane owns
-constexpr int kSlots = 32 * kOwn;              // 288 >= rxt::kRow
+constexpr int kWarps = 4;  // blocks per CTA
+using rxt::kOwn;
+using rxt::kSlots;
 
 __global__ void __launch_bounds__(32 * kWarps)
 model_values_kernel(const uint8_t* __restrict__ syms, const int32_t* __restrict__ lens,
@@ -45,7 +38,7 @@ model_values_kernel(const uint8_t* __restrict__ syms, const int32_t* __restrict_
   if (blk >= B) return;  // uniform over the warp; only __syncwarp below
   int* R = rows[warp];
   int* H = hist[warp];
-  const int own = lane * kOwn;
+  const int own = lane * kOwn;  // this lane's entries of the row
 #pragma unroll
   for (int m = 0; m < kOwn; ++m) {
     R[own + m] = own + m < rxt::kRow ? init_cum[own + m] : 0;
@@ -64,42 +57,10 @@ model_values_kernel(const uint8_t* __restrict__ syms, const int32_t* __restrict_
     if (t0 + 32 < K) v_next = t + 32 < K ? syms[row + t + 32] : 0;
     int n_act = upd_end - t0;  // active positions of this chunk: the first n_act
     n_act = n_act < 0 ? 0 : (n_act > 32 ? 32 : n_act);
-    int lt = 0, le = 0;
-    for (int i = 0; i < n_act; ++i) {  // the same trip count on every lane
-      const int vi = __shfl_sync(rxt::kFull, v, i);
-      if (i < lane) {
-        lt += vi < v;
-        le += vi <= v;
-      }
-    }
+    const int2 lohi = rxt::model_chunk(R, H, v, n_act, delta, lane);
     if (t < K) {
-      lo[row + t] = R[v] + delta * lt;
-      hi[row + t] = R[v + 1] + delta * le;
-    }
-    if (n_act > 0) {
-      if (lane < n_act) atomicAdd(&H[v], 1);
-      __syncwarp();
-      int h[kOwn];
-      int total = 0;
-#pragma unroll
-      for (int m = 0; m < kOwn; ++m) {
-        h[m] = H[own + m];
-        H[own + m] = 0;
-        total += h[m];
-      }
-      int incl = total;  // inclusive scan of the lane totals
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(rxt::kFull, incl, d);
-        if (lane >= d) incl += y;
-      }
-      int below = incl - total;  // active symbols < entry own + m
-#pragma unroll
-      for (int m = 0; m < kOwn; ++m) {
-        R[own + m] += delta * below;
-        below += h[m];
-      }
-      __syncwarp();
+      lo[row + t] = lohi.x;
+      hi[row + t] = lohi.y;
     }
   }
 }

@@ -263,11 +263,23 @@ def phase3_data(n_blocks: int, k: int, seed: int) -> bytes:
     return bytes(data[: n_blocks * k - k // 3])
 
 
+def odd_inputs(data: bytes, n_blocks: int, k: int, device: torch.device) -> KernelInputs:
+    """tpu_wide inputs off the kernels' even shapes: ``n_blocks`` blocks of
+    ``k`` from ``data`` (the last one short), with a pad lane (lens -1), an
+    empty and a 1-byte block among them."""
+    x = KernelInputs(data[: n_blocks * k - k // 3], Parameters.tpu_wide(), 16, k, device)
+    x.lens[3:6] = torch.tensor([-1, 0, 1], dtype=torch.int32)
+    return x
+
+
 def check_kernels(device: torch.device, n_blocks: int = 1024) -> dict:
     """Phase 3: the kernels against their plain versions (and K4, K5
     against K2) at tpu_wide, delta 16 with the prior; at tpu32 with the
-    freeze engaged; and at the reference CLI's (8,30,32), where K4 and K5
-    must refuse the parameters."""
+    freeze engaged; at the reference CLI's (8,30,32), where K2 and K3 take
+    their u64 instantiations and K4 and K5 must refuse the parameters; and
+    at shapes off the even ones: B not a multiple of 32 (K4's partial last
+    group) with K not a multiple of 32 or 4 (K2's scalar loads), and K a
+    multiple of 4 but not of 8 (K2's last positions after its groups)."""
     data = phase3_data(n_blocks, K, SEED)
     wide = KernelInputs(data, Parameters.tpu_wide(), 16, K, device)
     res = {"tpu_wide": compare_kernels(wide)}
@@ -277,6 +289,9 @@ def check_kernels(device: torch.device, n_blocks: int = 1024) -> dict:
     # The reference CLI's (8,30,32): 32-bit code values, 62-bit products.
     cli = KernelInputs(data[: 64 * 1024], Parameters.default(), 7, 1024, device)
     res["default_8_30_32"] = compare_kernels(cli, time_plain=False, reps=1)
+    for b, k in ((101, 1022), (70, 1020)):
+        res[f"odd_{b}x{k}"] = compare_kernels(odd_inputs(data, b, k, device), time_plain=False,
+                                              reps=1)
     return res
 
 

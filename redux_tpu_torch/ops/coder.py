@@ -22,6 +22,7 @@ import torch
 from ..params import Parameters
 
 M32 = 0xFFFFFFFF
+MAX_DELTA = 255  # the largest adaptation increment; count overshoots by delta - 1 at most
 
 
 def max_block_words(max_count: int, n_symbols: int, params: Parameters, k: int) -> int:
@@ -83,8 +84,20 @@ def expect_symbol_encoder(syms: torch.Tensor, lens: torch.Tensor, init_cum: torc
     expect(init_cum, "init_cum", torch.int32, (params.symbol_count + 1,), dev)
     if not (params.fits_u32 or params.fits_wide32):
         raise ValueError("the encoders from symbols require fits_u32 or fits_wide32 params")
+    # Both imply it; the kernels have only the reciprocal-quotient instantiation.
+    if not products_fit_53(params):
+        raise ValueError("the encoders from symbols require products_fit_53 params")
     if params.symbol_bits != 8 or not 1 <= delta <= 255 or n_words < 1:
         raise ValueError("symbol_bits 8, delta in 1..255 and n_words >= 1 are required")
+
+
+def products_fit_53(params: Parameters) -> bool:
+    """True when every dividend of the coder's quotients (K2-K5) stays below
+    ``2**53``: ``range * fhi`` (and the decoder's ``(z + 1) * count``) are
+    below ``2**code_bits * (freq_max + MAX_DELTA)``, and a double
+    reciprocal then gives each quotient within one.  Picks the kernels'
+    instantiation: reciprocal quotients, or native u64 divisions."""
+    return params.code_bits + (params.freq_max + MAX_DELTA - 1).bit_length() <= 53
 
 
 def check_code_bits(params: Parameters) -> None:

@@ -12,7 +12,8 @@ with ``low``), closed-form renormalisation, and ``n1 + n3`` more bits read
 MSB-first (reads past the end of a row give zero bits).  Words are staged
 block-major ``(B, W)``.
 
-The kernel has two instantiations, chosen by :func:`products_fit_53`:
+The kernel has two instantiations, chosen by
+:func:`~redux_tpu_torch.ops.coder.products_fit_53`:
 quotients from a double reciprocal with a one-step integer correction
 where every dividend stays below ``2**53`` (tpu_wide, tpu32), native u64
 divisions otherwise (the reference CLI's (8,30,32)).
@@ -24,18 +25,10 @@ import torch
 
 from .. import _build
 from ..params import Parameters
-from .coder import M32, check_code_bits, expect, kernel_device, mask, renorm_plain
+from .coder import (M32, check_code_bits, expect, kernel_device, mask, products_fit_53,
+                    renorm_plain)
 
 launches = 0  # kernel launches of decode_blocks (CUDA tensors only)
-MAX_DELTA = 255  # the largest adaptation increment; count overshoots by delta - 1 at most
-
-
-def products_fit_53(params: Parameters) -> bool:
-    """True when every dividend of the decoder stays below ``2**53``:
-    ``(z + 1) * count`` and ``range * fhi`` are below
-    ``2**code_bits * (freq_max + MAX_DELTA)``, and a double reciprocal
-    then gives each quotient within one."""
-    return params.code_bits + (params.freq_max + MAX_DELTA - 1).bit_length() <= 53
 
 
 def decode_blocks_plain(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,

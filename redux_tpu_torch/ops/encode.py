@@ -25,7 +25,7 @@ import torch
 from .. import _build
 from ..params import Parameters
 from .coder import (M32, PlainCoder, check_code_bits, expect, expect_symbol_encoder,
-                    kernel_device, tfreeze)
+                    kernel_device, products_fit_53, tfreeze)
 from .model import model_lohi, model_lohi_plain
 
 launches = 0  # kernel launches of encode_blocks (CUDA tensors only)
@@ -62,7 +62,9 @@ def encode_blocks(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, init_t
     bool)``: each block's big-endian stream (u32 bit patterns, zero past
     the stream), its byte length counting every bit even past ``n_words``,
     and whether a piece overflowed 64 bits.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel on the current stream.
+    version; CUDA tensors launch the kernel on the current stream, in its
+    reciprocal-quotient instantiation where :func:`products_fit_53` (tpu_wide,
+    tpu32) and with u64 divisions otherwise (the reference CLI's (8,30,32)).
     """
     global launches
     dev = lo.device
@@ -85,8 +87,8 @@ def encode_blocks(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, init_t
     err = lib.rxt_encode_blocks(
         lo.data_ptr(), hi.data_ptr(), lens.data_ptr(), words.data_ptr(),
         byte_lens.data_ptr(), ovf.data_ptr(), b, k, n_words, init_total,
-        tfreeze(init_total, params, delta), delta, params.code_bits, dev.index or 0,
-        _build.stream_of(dev),
+        tfreeze(init_total, params, delta), delta, params.code_bits,
+        int(products_fit_53(params)), dev.index or 0, _build.stream_of(dev),
     )
     _build.check(err, "rxt_encode_blocks")
     launches += 1

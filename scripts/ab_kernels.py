@@ -1,0 +1,116 @@
+"""Device time of the port's five kernels for several checkouts, in turns on one card.
+
+    python3 scripts/ab_kernels.py DIR [DIR ...] [--reps 5]
+
+Each checkout runs as a fresh process, in the order given and then in
+reverse (A, B, B, A for two): it builds its kernels and prints ptxas's
+registers, shared memory and spills a kernel, then times each kernel's
+wrapper on ``cuda:0`` with CUDA events (the mean of ``--reps`` launches
+after one warm-up) at the two shapes ``chip_smoke.py`` reads: 1024 blocks
+of 4096 (``cuda_checks.phase3_data``, seed 7, its phase 3) and the main
+path's 16384 blocks of 4096 (64 MiB of ``testdata.mixed``, seed 2024);
+tpu_wide, delta 16, the warm-start prior.  K1 feeds K2, K2's streams feed
+K3 on lanes sorted by coded length (the main path's staging), and K4 and
+K5 code the symbols.  Every process prints one JSON line with the times
+and a digest of each kernel's outputs; every checkout's digests must equal
+the first one's (the same bytes).  Then per checkout the median time of
+each kernel at each shape, in milliseconds.  Compare versions only within
+one call: cards and hosts differ between calls.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+SHAPES = ("1024x4096", "16384x4096")
+
+
+def worker(root: Path, reps: int) -> None:
+    sys.path.insert(0, str(root))
+    import torch
+
+    import redux_tpu_torch
+    from redux_tpu_torch import _build, api, cuda_checks, testdata
+    from redux_tpu_torch.ops.decode import decode_blocks
+    from redux_tpu_torch.ops.encode import encode_blocks, encode_blocks_fused
+    from redux_tpu_torch.ops.encode_m import encode_blocks_m
+    from redux_tpu_torch.ops.model import model_lohi
+
+    if not Path(redux_tpu_torch.__file__).resolve().is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported {redux_tpu_torch.__file__}, not the one under {root}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    dev = torch.device("cuda", 0)
+    _build.lib()
+    params, delta, k = api.Parameters.tpu_wide(), 16, 4096
+    inputs = {"1024x4096": cuda_checks.phase3_data(1024, k, 7),
+              "16384x4096": testdata.mixed(64 << 20, 2024)}
+    times, digests = {}, {}
+    for shape, data in inputs.items():
+        x = cuda_checks.KernelInputs(data, params, delta, k, dev)
+        sym = (x.syms, x.lens, x.init_cum, params, x.n_words, delta)
+        lo, hi = model_lohi(x.syms, x.lens, x.init_cum, params, delta)
+        enc = (lo, hi, x.lens, x.init_total, params, x.n_words, delta)
+        words, bl, ovf = encode_blocks(*enc)
+        raw = ovf | (bl >= x.lens)
+        order = torch.argsort(torch.where(raw, 0, bl), stable=True)
+        klens = torch.where(raw, 0, x.lens).to(torch.int32)[order].contiguous()
+        staged = torch.nn.functional.pad(words, (0, 2))[order].contiguous()
+        dec = (staged, klens, x.init_cum, params, k, delta)
+        runs = {
+            "model_values": lambda: model_lohi(x.syms, x.lens, x.init_cum, params, delta),
+            "encode": lambda: encode_blocks(*enc),
+            "decode": lambda: decode_blocks(*dec),
+            "encode_fused": lambda: encode_blocks_fused(*sym),
+            "encode_m": lambda: encode_blocks_m(*sym),
+        }
+        times[shape] = {name: cuda_checks.cuda_ms(fn, reps) for name, fn in runs.items()}
+        h = {}
+        for name, fn in runs.items():
+            out = fn()
+            h[name] = hashlib.sha256(b"".join(
+                t.cpu().numpy().tobytes() for t in (out if isinstance(out, tuple) else (out,))
+            )).hexdigest()[:16]
+        digests[shape] = h
+    print(json.dumps({"root": str(root), "device": torch.cuda.get_device_name(0),
+                      "ptxas": _build.resource_usage(), "ms": times, "digests": digests}))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("dirs", type=Path, nargs="+")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.dirs[0], args.reps)
+        return 0
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip())
+    runs = {d: [] for d in args.dirs}
+    first = None
+    for d in [*args.dirs, *reversed(args.dirs)]:
+        out = subprocess.run([sys.executable, __file__, str(d), "--worker", "--reps",
+                              str(args.reps)], check=True, capture_output=True, text=True).stdout
+        res = json.loads(out.strip().splitlines()[-1])
+        print(json.dumps({k: res[k] for k in ("root", "ptxas", "ms")}))
+        first = first or res["digests"]
+        if res["digests"] != first:
+            raise AssertionError(f"{d}: outputs differ from {args.dirs[0]}'s: {res['digests']}")
+        runs[d].append(res["ms"])
+    for d, rs in runs.items():
+        med = {s: {name: round(statistics.median(r[s][name] for r in rs), 4) for name in rs[0][s]}
+               for s in SHAPES}
+        print(f"median {d} ({len(rs)} runs): {json.dumps(med)}")
+    print("outputs equal in every run")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -161,3 +161,50 @@ def test_two_shards_on_one_card(cuda_device):
     ranked = encode_blocks_ranked(*args, x.delta)
     sharded = encode_blocks_m_sharded(*args, two, x.delta)
     assert cuda_checks.triple_err(sharded, ranked, x.n_words) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(101, 1022), (70, 1020), (37, 220)])
+def test_odd_shapes_match_plain_versions(cuda_device, b, k):
+    """B not a multiple of 32 (K4's partial last group), K not a multiple
+    of 32, 8 or 4 (K2's scalar loads and last positions), a pad lane, an
+    empty and a 1-byte block: every kernel equals its plain version, and K4
+    and K5 equal K2's streams."""
+    from redux_tpu_torch import cuda_checks
+
+    data = cuda_checks.phase3_data(128, cuda_checks.K, 17)
+    res = cuda_checks.compare_kernels(cuda_checks.odd_inputs(data, b, k, cuda_device),
+                                      time_plain=False, reps=1)
+    assert all(res[name]["max_abs_err"] == 0 for name in cuda_checks.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,delta,fits", [((8, 20, 22), 16, True), ((8, 30, 32), 7, False)])
+def test_coder_instantiations(cuda_device, cfg, delta, fits):
+    """K2 in both instantiations against its plain version: reciprocal
+    quotients at tpu_wide, u64 divisions at the reference CLI's (8,30,32)."""
+    from redux_tpu_torch import cuda_checks
+    from redux_tpu_torch.ops.coder import products_fit_53
+    from redux_tpu_torch.params import Parameters
+
+    params = Parameters(*cfg)
+    assert products_fit_53(params) == fits
+    x = cuda_checks.KernelInputs(cuda_checks.phase3_data(64, 1024, 19), params, delta, 1024,
+                                 cuda_device)
+    res = cuda_checks.compare_kernels(x, time_plain=False, reps=1)
+    assert res["encode"]["max_abs_err"] == 0
+
+
+@pytest.mark.cuda
+def test_fused_equals_coder_at_main_shape(cuda_device):
+    """K4 against K1 -> K2 at the main path's 16384 x 4096 (64 MiB)."""
+    from redux_tpu_torch import cuda_checks, testdata
+    from redux_tpu_torch.ops.encode import encode_blocks_fused, encode_blocks_ranked
+    from redux_tpu_torch.params import Parameters
+
+    x = cuda_checks.KernelInputs(testdata.mixed(64 << 20, 2024), Parameters.tpu_wide(), 16,
+                                 4096, cuda_device)
+    args = (x.syms, x.lens, x.init_cum, x.params, x.n_words, x.delta)
+    assert x.syms.shape == (16384, 4096)
+    assert cuda_checks.triple_err(encode_blocks_fused(*args), encode_blocks_ranked(*args),
+                                  x.n_words) == 0

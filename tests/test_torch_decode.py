@@ -19,6 +19,7 @@ from redux_tpu.params import Parameters as RefParameters
 from redux_tpu_torch.ops.coder import bytes_to_words
 from redux_tpu_torch.ops.decode import decode_blocks, products_fit_53
 from redux_tpu_torch.params import Parameters
+from torch_kernel_emulation import div53, div53_int, renorm
 
 
 def _words(streams, extra_words):
@@ -191,23 +192,15 @@ def test_fenwick_descent_equals_the_row_search(cfg, delta):
     assert node == _tree(cdf)
 
 
-def _div53(a, b):
-    """The kernel's quotient for dividends below 2**53: the truncated
-    product with the rounded reciprocal, corrected by one."""
-    q = (a.astype(np.float64) * (1.0 / b.astype(np.float64))).astype(np.uint64)
-    qb = q * b
-    over = qb > a
-    q = np.where(over, q - np.uint64(1), q)
-    under = ~over & (a - np.where(over, a, qb) >= b)
-    return np.where(under, q + np.uint64(1), q)
-
-
 @pytest.mark.parametrize("cfg", [(8, 20, 22), (8, 15, 17)])
 def test_reciprocal_quotient_is_exact(cfg):
     """Random and boundary pairs (a = q*b - 1, q*b, q*b + b - 1) over every
     divisor and dividend the decoder reaches at this configuration:
     divisors up to 2**code_bits (the range) and freq_max + 254 (the count),
-    dividends below 2**code_bits * (freq_max + 255)."""
+    dividends below 2**code_bits * (freq_max + 255).  The encoders' (K2,
+    K4, K5) quotients are the same function over a subset of these pairs:
+    ``range * flo`` and ``range * fhi`` over ``count``, with
+    ``range <= 2**code_bits`` and ``flo <= fhi <= count <= freq_max + 254``."""
     p = Parameters(*cfg)
     assert products_fit_53(p)
     rng = np.random.default_rng(cfg[2])
@@ -228,7 +221,7 @@ def test_reciprocal_quotient_is_exact(cfg):
     for a in (q * b - np.uint64(1), q * b, q * b + b - np.uint64(1),
               rng.integers(0, a_max, b.size, dtype=np.uint64)):
         a = np.minimum(a, np.uint64(a_max - 1))
-        np.testing.assert_array_equal(_div53(a, b), a // b)
+        np.testing.assert_array_equal(div53(a, b), a // b)
 
 
 def test_products_fit_53_routes_the_instantiations(monkeypatch):
@@ -278,27 +271,17 @@ def _decode_block_emulated(words, n_sym, ic, p, delta):
         pos_bits += n
         return int(s, 2) if n else 0
 
-    def div(a, b):
-        return int(_div53(np.array([a], np.uint64), np.array([b], np.uint64))[0])
-
     node = _tree(ic.astype(np.int64))
     count = int(ic[-1])
     low, high, z = 0, cmax, read(cb)
     out = []
     for _ in range(n_sym):
         rng = high - low + 1
-        value = min(div((z + 1) * count - 1, rng), count - 1)
+        value = min(div53_int((z + 1) * count - 1, rng), count - 1)
         sym, flo, fhi = _descent(node, value, int(ic[0]))
-        dlo, dhi = div(rng * flo, count), div(rng * fhi, count)
+        dlo, dhi = div53_int(rng * flo, count), div53_int(rng * fhi, count)
         high, low, z = low + dhi - 1, low + dlo, z - dlo
-        n1 = max(cb - (low ^ high).bit_length(), 0)
-        low1 = (low << n1) & cmax
-        high1 = ((high << n1) | ((1 << n1) - 1)) & cmax
-        a = 32 - (((low1 << (33 - cb)) & 0xFFFFFFFF) ^ 0xFFFFFFFF).bit_length()
-        b = 32 - ((high1 << (33 - cb)) & 0xFFFFFFFF).bit_length()
-        n3 = min(a, b, cb - 1)
-        low = (low1 << n3) & (cmax >> 1)
-        high = (((high1 << n3) | ((1 << n3) - 1)) & (cmax >> 1)) | (1 << (cb - 1))
+        low, high, n1, n3 = renorm(low, high, cb)
         n = min(n1 + n3, cb)
         z = ((z << n) | read(n)) & cmax
         if count < p.freq_max:

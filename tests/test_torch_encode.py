@@ -1,7 +1,9 @@
 """K2 (coder): the port's plain version against the reference's Pallas
 coder in interpret mode (``encode_blocks_pallas``), fed the same
 ``(lo, hi)``.  Exact equality of the stream bytes up to each block's byte
-length, of the byte lengths and of the overflow flags."""
+length, of the byte lengths and of the overflow flags.  Also the CUDA
+kernel's algorithm, one thread emulated in Python (reciprocal quotients,
+branch-free emission), and the choice of the kernel's instantiation."""
 
 import numpy as np
 import pytest
@@ -17,8 +19,10 @@ from redux_tpu.ops.pallas_encode import encode_blocks_ranked as ref_encode_ranke
 from redux_tpu.ops.ranks import precompute_encode_model
 from redux_tpu.params import Parameters as RefParameters
 
+from redux_tpu_torch.ops.coder import products_fit_53, tfreeze
 from redux_tpu_torch.ops.encode import encode_blocks, encode_blocks_ranked
 from redux_tpu_torch.params import Parameters
+from torch_kernel_emulation import Coder, count_at
 
 
 def _stream_bytes(words, byte_lens, n_words):
@@ -169,3 +173,106 @@ def test_coder_wrapper_checks():
         encode_blocks(lo, lo, lens, 257, Parameters(8, 20, 44), 4, 16)
     w, bl, ov = encode_blocks(lo, lo, torch.tensor([0, -1], dtype=torch.int32), 257, p, 4, 16)
     assert bl.tolist() == [1, 0] and not ov.any() and w[1].tolist() == [0] * 4
+
+
+def _encode_block_emulated(lo, hi, n, init_total, params, n_words, delta):
+    """Python emulation of one thread of ``csrc/encode.cu`` (the reciprocal
+    instantiation): per position t < n the step over the total
+    ``rxt::Count`` gives for t, then the terminator (none for n < 0).
+    Returns ``(words, byte_len, ovf)`` as the kernel stores them."""
+    tf = tfreeze(init_total, params, delta)
+    coder = Coder(n_words, params.code_bits)
+    for t in range(n):
+        coder.step(int(lo[t]), int(hi[t]), count_at(t, init_total, delta, tf))
+    if n >= 0:
+        coder.terminate()
+    return coder.finish()
+
+
+def _emulated_triple(lo, hi, lens, init_total, params, n_words, delta):
+    rows = [_encode_block_emulated(lo[i], hi[i], int(n), init_total, params, n_words, delta)
+            for i, n in enumerate(lens)]
+    words = np.array([r[0] for r in rows], np.uint32).reshape(len(rows), n_words)
+    return words, np.array([r[1] for r in rows]), np.array([r[2] for r in rows])
+
+
+@pytest.mark.parametrize("cfg,delta", [((8, 20, 22), 16), ((8, 14, 16), 64)])
+def test_kernel_algorithm_codes_reference_streams(cfg, delta):
+    """The emulated kernel thread codes the sequential oracle's streams byte
+    for byte, with the freeze engaged at (8,14,16), and gives the plain
+    version's triple."""
+    rp, p = RefParameters(*cfg), Parameters(*cfg)
+    k = 600
+    ic = uniform_init_cum(rp).astype(np.int32)
+    if cfg == (8, 14, 16):
+        assert 0 < tfreeze(int(ic[-1]), p, delta) < k  # the freeze lands mid-block
+    blocks = _mixed_blocks(17, k)
+    lo, hi, lens = _blocks_to_lohi(blocks, k, ic, cfg, delta)
+    n_words = max_block_words(rp.freq_max, 257, rp, k)
+    words, bl, ov = _emulated_triple(lo, hi, lens, int(ic[-1]), p, n_words, delta)
+    got = _stream_bytes(words, bl, n_words)
+    for i, d in enumerate(blocks):
+        assert got[i] == oracle.compress_block(d, rp, ic.astype(np.int64), delta), f"block {i}"
+    w_p, bl_p, ov_p = encode_blocks(torch.from_numpy(lo), torch.from_numpy(hi),
+                                    torch.from_numpy(lens), int(ic[-1]), p, n_words, delta)
+    np.testing.assert_array_equal(bl, bl_p.numpy())
+    np.testing.assert_array_equal(ov, ov_p.numpy())
+    np.testing.assert_array_equal(words, w_p.numpy().view(np.uint32))
+
+
+def test_kernel_algorithm_long_e3_runs():
+    """The emulated kernel thread on the crafted long E3 runs: pieces past
+    64 bits set ovf and are cut as the plain version cuts them, a pad lane
+    (lens -1) writes nothing, and words past the capacity are dropped."""
+    cfg, delta, init_total, k = (8, 20, 22), 4, 256, 96
+    p = Parameters(*cfg)
+    counts = [init_total + delta * t for t in range(k)]
+    plans = [(80, "term"), (70, "low"), (70, "high"), (64, "half"), (62, "half"), (90, "high")]
+    rows = [_e3_plane(k, counts, plan) for plan in plans] * 2
+    lo = np.stack([r[0] for r in rows])
+    hi = np.stack([r[1] for r in rows])
+    lens = np.array([80, 72, 72, 66, 63, 95, 0, -1, 1, 5, 96, 40], np.int32)
+    words, bl, ov = _emulated_triple(lo, hi, lens, init_total, p, 8, delta)
+    w_p, bl_p, ov_p = encode_blocks(torch.from_numpy(lo), torch.from_numpy(hi),
+                                    torch.from_numpy(lens), init_total, p, 8, delta)
+    np.testing.assert_array_equal(bl, bl_p.numpy())
+    np.testing.assert_array_equal(ov, ov_p.numpy())
+    np.testing.assert_array_equal(words, w_p.numpy().view(np.uint32))
+    assert ov[:6].tolist() == [True, True, True, True, False, True] and bl[7] == 0
+
+
+def test_encode_blocks_passes_products_fit_53(monkeypatch):
+    """encode_blocks launches the reciprocal instantiation (flag 1) at
+    tpu_wide and tpu32 and the u64 one (flag 0) at the reference CLI's
+    (8,30,32); the flag is what products_fit_53 says."""
+    from redux_tpu_torch import _build
+    from redux_tpu_torch.ops import encode as enc
+
+    seen = []
+
+    class FakeLib:
+        def rxt_encode_blocks(self, *args):
+            seen.append(args)
+            return 0
+
+    monkeypatch.setattr(enc, "kernel_device", lambda dev: True)
+    monkeypatch.setattr(enc, "launches", 0)
+    monkeypatch.setattr(_build, "lib", lambda: FakeLib())
+    monkeypatch.setattr(_build, "stream_of", lambda dev: 0)
+    lo = torch.zeros(2, 8, dtype=torch.int32)
+    lens = torch.full((2,), 8, dtype=torch.int32)
+    for params, fits in ((Parameters.tpu_wide(), 1), (Parameters.tpu32(), 1),
+                         (Parameters.default(), 0)):
+        assert products_fit_53(params) == bool(fits)
+        encode_blocks(lo, lo, lens, 257, params, 4, 16)
+        assert seen[-1][13] == fits, params
+    assert enc.launches == 3
+
+
+def test_symbol_encoder_params_fit_53():
+    """K4 and K5 have only the reciprocal instantiation: every valid
+    parameter set they take (fits_u32 or fits_wide32) keeps the coder's
+    dividends below 2**53."""
+    taken = [Parameters(8, f, c) for f in range(10, 31) for c in range(f + 2, 33)
+             if c + f <= 64 and (Parameters(8, f, c).fits_u32 or Parameters(8, f, c).fits_wide32)]
+    assert len(taken) > 20 and all(products_fit_53(p) for p in taken)

@@ -4,6 +4,8 @@ reference's fused Pallas kernel in interpret mode
 drives it: the init column, the (init_total, tfreeze) constants and pad
 lanes with ``lens = -1``.  Exact equality (tolerance 0) of the byte
 lengths, the overflow flags and the stream bytes up to each byte length.
+Also the CUDA kernel's schedule, emulated in numpy: groups of 32 blocks,
+K1's chunk step filling a tile, and one coder a block reading it.
 """
 
 import jax
@@ -21,7 +23,9 @@ import redux_tpu_torch.ops.encode as enc
 from redux_tpu_torch import api
 from redux_tpu_torch.ops.encode import encode_blocks_fused, encode_blocks_ranked
 from redux_tpu_torch.params import Parameters
+from redux_tpu_torch.ops.coder import tfreeze
 from redux_tpu_torch.testdata import incompressible, text_like
+from torch_kernel_emulation import SLOTS, Coder, count_at, model_chunk
 
 
 def _stream_bytes(words, byte_lens, n_words):
@@ -142,3 +146,83 @@ def test_api_encode_under_fused_variable(monkeypatch):
     assert mine == ref
     assert ref_api.decode(mine) == data
     assert api.decode(mine, device="cpu") == data
+
+
+def _encode_fused_emulated(syms, lens, ic, params, n_words, delta):
+    """numpy/Python emulation of ``csrc/encode_fused.cu``: a CTA a group of
+    32 blocks (lanes past B have lens -1); per chunk of 32 positions the
+    model warps run ``rxt::model_chunk`` on every block that has a
+    position in the chunk and write its lo/hi into a tile of 32 positions
+    x 33; then lane j of the coder warp codes block j's positions t < lens
+    from the tile, over the total of position t.  Returns the triple."""
+    b, k = syms.shape
+    init_total = int(ic[-1])
+    tf = tfreeze(init_total, params, delta)
+    out = []
+    for g0 in range(0, b, 32):
+        glens = [min(int(lens[g0 + j]), k) if g0 + j < b else -1 for j in range(32)]
+        rows = np.zeros((32, SLOTS), np.int64)
+        rows[:, : len(ic)] = ic
+        coders = [Coder(n_words, params.code_bits) for _ in range(32)]
+        for c in range((max(glens) + 31) // 32):
+            t0 = c * 32
+            tile = np.zeros((2, 32, 33), np.int64)  # lo, hi; [position, block]
+            for j, n in enumerate(glens):
+                if t0 >= n:
+                    continue
+                v = np.zeros(32, np.int64)
+                m = min(n - t0, 32)
+                v[:m] = syms[g0 + j, t0 : t0 + m]
+                n_act = min(max(min(n, tf) - t0, 0), 32)
+                tile[0, :, j], tile[1, :, j] = model_chunk(rows[j], v, n_act, delta)
+            for pos in range(32):
+                count = count_at(t0 + pos, init_total, delta, tf)
+                for j, n in enumerate(glens):
+                    if t0 + pos < n:
+                        coders[j].step(int(tile[0, pos, j]), int(tile[1, pos, j]), count)
+        for j, n in enumerate(glens[: b - g0]):
+            if n >= 0:
+                coders[j].terminate()
+            out.append(coders[j].finish())
+    words = np.array([r[0] for r in out], np.uint32).reshape(b, n_words)
+    return words, np.array([r[1] for r in out]), np.array([r[2] for r in out])
+
+
+FUSED_SCHEDULE_CASES = {
+    "tpu_wide_delta16_prior_b37": ((8, 20, 22), 16, True),
+    "freeze_in_chunk_8_14_16_delta120_b37": ((8, 14, 16), 120, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_SCHEDULE_CASES))
+def test_fused_schedule_matches_reference_kernel(name):
+    """The emulated schedule against the reference's fused kernel in
+    interpret mode and the plain version: B = 37 (a partial second group),
+    K = 220 (not a multiple of 32), pad lanes, empty and 1-byte blocks, and
+    at (8,14,16) delta 120 the freeze inside a chunk."""
+    cfg, delta, prior = FUSED_SCHEDULE_CASES[name]
+    rp, p = RefParameters(*cfg), Parameters(*cfg)
+    k, b = 220, 37
+    ic = _init_row(rp, prior)
+    blocks = (_blocks(k, cfg[1] + 5) * 6)[:b]
+    syms = np.zeros((b, k), np.uint8)
+    lens = np.array([len(d) for d in blocks], np.int32)
+    for i, d in enumerate(blocks):
+        syms[i, : len(d)] = np.frombuffer(d, np.uint8)
+    lens[[9, 33]] = -1  # pad lanes, one in each group
+    syms[9] = 3
+    tf = tfreeze(int(ic[-1]), p, delta)
+    if not prior:
+        assert 0 < tf < k and tf % 32 != 0  # the freeze lands inside a chunk
+    n_words = ((k // 2 + SLAB - 1) // SLAB) * SLAB
+    words, bl, ov = _encode_fused_emulated(syms, lens, ic, p, n_words, delta)
+    w_r, bl_r, ov_r = _ref_fused(syms, lens, ic, rp, n_words, delta)
+    np.testing.assert_array_equal(bl, bl_r)
+    np.testing.assert_array_equal(ov, ov_r)
+    assert _stream_bytes(words, bl, n_words) == _stream_bytes(w_r, bl_r, n_words)
+    w_p, bl_p, ov_p = encode_blocks_fused(torch.from_numpy(syms), torch.from_numpy(lens),
+                                          torch.from_numpy(ic), p, n_words, delta)
+    np.testing.assert_array_equal(bl, bl_p.numpy())
+    np.testing.assert_array_equal(ov, ov_p.numpy())
+    np.testing.assert_array_equal(words, w_p.numpy().view(np.uint32))
+    assert bl[9] == bl[33] == 0 and (lens == 0).any() and (lens == 1).any()

@@ -15,6 +15,7 @@ from redux_tpu.params import Parameters as RefParameters
 
 from redux_tpu_torch.ops.model import model_lohi, model_lohi_plain
 from redux_tpu_torch.params import Parameters
+from torch_kernel_emulation import SLOTS, model_chunk
 
 
 def _check(syms, lens, ic, cfg, delta):
@@ -68,19 +69,14 @@ def test_model_values_prior_and_freeze_tpu32():
 
 def _model_chunked(syms, lens, ic, freq_max, delta):
     """numpy emulation of the kernel's 32-positions-at-a-time algorithm
-    (``csrc/model_values.cu``): in-chunk ranks over the earlier active
-    lanes, then the row update from a histogram of the active symbols,
-    with lane l owning the 9 contiguous entries 9l .. 9l+8 (an in-lane
-    prefix and an exclusive scan of the lane totals)."""
+    (``csrc/model_values.cu``): ``rxt::model_chunk`` on every chunk, the
+    active positions those below min(lens, tfreeze, K)."""
     b, k = syms.shape
-    own, slots = 9, 32 * 9
-    init_total = int(ic[-1])
-    tf = max(-(-(freq_max - init_total) // delta), 0)
+    tf = max(-(-(freq_max - int(ic[-1])) // delta), 0)
     lo = np.zeros((b, k), np.int64)
     hi = np.zeros((b, k), np.int64)
-    earlier = np.tril(np.ones((32, 32), bool), -1)  # [j, i]: i < j
     for blk in range(b):
-        row = np.zeros(slots, np.int64)
+        row = np.zeros(SLOTS, np.int64)
         row[: len(ic)] = ic
         upd_end = min(int(lens[blk]), tf, k)
         for t0 in range(0, k, 32):
@@ -88,18 +84,9 @@ def _model_chunked(syms, lens, ic, freq_max, delta):
             v = np.zeros(32, np.int64)
             v[:n] = syms[blk, t0 : t0 + n]
             n_act = min(max(upd_end - t0, 0), 32)
-            act = np.arange(32) < n_act
-            m = earlier & act[None, :]
-            lt = (m & (v[None, :] < v[:, None])).sum(1)
-            le = (m & (v[None, :] <= v[:, None])).sum(1)
-            lo[blk, t0 : t0 + n] = (row[v] + delta * lt)[:n]
-            hi[blk, t0 : t0 + n] = (row[v + 1] + delta * le)[:n]
-            if n_act:
-                h = np.bincount(v[act], minlength=slots).reshape(32, own)
-                lane_total = h.sum(1)
-                below = np.cumsum(lane_total) - lane_total  # exclusive warp scan
-                in_lane = np.cumsum(h, 1) - h  # exclusive in-lane prefix
-                row += delta * (below[:, None] + in_lane).reshape(-1)
+            lo_c, hi_c = model_chunk(row, v, n_act, delta)
+            lo[blk, t0 : t0 + n] = lo_c[:n]
+            hi[blk, t0 : t0 + n] = hi_c[:n]
     return lo, hi
 
 
