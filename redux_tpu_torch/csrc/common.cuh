@@ -1,5 +1,6 @@
 // Shared pieces of the port's kernels: K1's chunk step of the adaptive
-// model (K1 and K4), the coder's total and its reciprocal, the reciprocal
+// model (K1 and K4), the named barriers between producer and consumer warps
+// (K4 and K5), the coder's total and its reciprocal, the reciprocal
 // quotient (K2-K5), the closed-form interval renormalisation (K2-K5), the
 // v2 coder step with its bit emission (K2, K4 and K5 all code and emit
 // through Coder below), and the per-thread Fenwick model in shared memory
@@ -68,6 +69,19 @@ __device__ __forceinline__ int2 model_chunk(int* R, int* H, int v, int n_act, in
     __syncwarp();
   }
   return lohi;
+}
+
+// Named barriers between the producer and consumer warps of a CTA (K4,
+// K5): the producer arrives, the consumer syncs, kN threads in all.  The
+// "memory" clobber keeps shared-memory accesses on their side of it.
+template <int kN>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kN) : "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kN) : "memory");
 }
 
 // First position whose update is frozen: max(ceil((freq_max - init_total) / delta), 0).
@@ -257,28 +271,76 @@ struct Coder {
 // 257 symbol frequencies are a Fenwick tree in shared memory, the layout of
 // the reference library's own model (redux_tpu/models/fenwick.py): node i
 // (1-based) holds the frequencies of symbols i - lowbit(i) .. i - 1, so
-// cdf[v] = init_cum[0] + prefix(v).  Node i of the thread with index x
-// sits at tree[(i - 1) * kTreeThreads + x] in a CTA of kTreeThreads
-// threads, so every access of a warp hits 32 distinct banks whatever the
-// symbols.  The running total stays in a register beside the tree.
-constexpr int kTreeThreads = 32;       // blocks per CTA: one bank each
+// cdf[v] = init_cum[0] + prefix(v).  In a CTA whose tree has kCols columns,
+// node i of column x sits at tree[(i - 1) * kCols + x], so every access of
+// a warp hits 32 distinct banks whatever the symbols.  The running total
+// stays in a register beside the tree.  K5 reads and updates it in closed
+// form (prefix, load_walk, store_walk): every node a byte touches follows
+// from the byte alone, so its loads are independent and unrolled, with no
+// walk whose trip count differs between lanes.
+constexpr int kTreeThreads = 32;       // K3's blocks per CTA: one bank each
 constexpr int kNodes = kRow - 1;       // nodes 1..257
 constexpr int kTreeInts = kNodes * kTreeThreads;  // 32,896 bytes a CTA
+constexpr int kWalk = 9;               // nodes of an update walk from node 1..256
 
 __device__ __forceinline__ int lowbit(int i) { return i & -i; }
 
-struct Fenwick {
-  int* col;  // this thread's column: tree + threadIdx.x
+// The nodes the update freq[v] += d touches for a byte v, and their values
+// as Fenwick::load_walk() read them.  The walk from node v + 1 (v + 1, then
+// + lowbit each step, up to node 256) is, in closed form, node
+// (v | (2^b - 1)) + 1 for every bit b < kWalk that is 0 in v; for a bit that
+// is 1 the same formula gives the node of the next 0 bit above it.  So
+// entry b is node (v | (2^b - 1)) + 1 for every b: repeats, but no
+// predicate, and a repeated node is stored twice with the same value.
+struct Walk {
+  int i[kWalk];  // the nodes; i[0] is node v + 1
+  int v[kWalk];  // their values
+};
 
-  __device__ __forceinline__ int& node(int i) const { return col[(i - 1) * kTreeThreads]; }
+template <int kCols = kTreeThreads>
+struct Fenwick {
+  int* col;  // this thread's column, tree + x: node i is col[(i - 1) * kCols]
+
+  __device__ __forceinline__ int& node(int i) const { return col[(i - 1) * kCols]; }
 
   __device__ __forceinline__ void init(const int32_t* __restrict__ init_cum) const {
     for (int i = 1; i <= kNodes; ++i) node(i) = init_cum[i] - init_cum[i - lowbit(i)];
   }
 
-  // freq[v] += d: the walk up from node v + 1.
-  __device__ __forceinline__ void add(int v, int d) const {
-    for (int i = v + 1; i <= kNodes; i += lowbit(i)) node(i) += d;
+  // prefix(v) for a byte v: the read walk v, v & (v - 1), ... is v with
+  // its lowest set bits cleared one at a time, one node a set bit b of v,
+  // node (v >> b) << b.  `low` gets the terms of v's trailing ones b: the
+  // nodes (v + 1) - 2^b that freq(v) = node(v + 1) - low subtracts (K3's
+  // closed form), so flo = base + prefix and fhi = flo + node(v + 1) - low
+  // share their reads.
+  __device__ __forceinline__ int prefix(int v, int& low) const {
+    const int ones = v & ~(v + 1);  // v's trailing ones
+    int sum = 0;
+    low = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int n = (v >> b) & 1 ? node((v >> b) << b) : 0;
+      sum += n;
+      if ((ones >> b) & 1) low += n;
+    }
+    return sum;
+  }
+
+  __device__ __forceinline__ Walk load_walk(int v) const {
+    Walk w;
+#pragma unroll
+    for (int b = 0; b < kWalk; ++b) {
+      w.i[b] = (v | ((1 << b) - 1)) + 1;
+      w.v[b] = node(w.i[b]);
+    }
+    return w;
+  }
+
+  // Each node of the walk becomes its loaded value + d (d = 0 writes back
+  // what was read).
+  __device__ __forceinline__ void store_walk(const Walk& w, int d) const {
+#pragma unroll
+    for (int b = 0; b < kWalk; ++b) node(w.i[b]) = w.v[b] + d;
   }
 };
 

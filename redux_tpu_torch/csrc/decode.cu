@@ -83,7 +83,7 @@ decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ le
   const int x = threadIdx.x;
   const int blk = blockIdx.x * kThreads + x;
   if (blk >= B) return;  // no barrier below: each thread owns its tree
-  const rxt::Fenwick fw{tree + x};
+  const rxt::Fenwick<> fw{tree + x};
   fw.init(init_cum);
   const uint32_t base = init_cum[0];
   uint64_t count = static_cast<uint32_t>(init_cum[kNodes]);

@@ -52,14 +52,6 @@ constexpr int kSmemBytes = 4 * (kGroupBlocks * rxt::kSlots + kModelWarps * rxt::
 constexpr int kFullBar = 1;   // + half: the half holds a chunk (barrier 0 is __syncthreads)
 constexpr int kEmptyBar = 3;  // + half: the half is free again
 
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
-}
-
 __global__ void __launch_bounds__(kThreads)
 encode_fused_kernel(const uint8_t* __restrict__ syms, const int32_t* __restrict__ lens,
                     const int32_t* __restrict__ init_cum, uint32_t* __restrict__ words,
@@ -102,7 +94,7 @@ encode_fused_kernel(const uint8_t* __restrict__ syms, const int32_t* __restrict_
     for (int c = 0; c < n_chunks; ++c) {
       const int half = c & 1;
       const int t0 = c * 32;
-      if (c >= 2) bar_sync(kEmptyBar + half);
+      if (c >= 2) rxt::bar_sync<kThreads>(kEmptyBar + half);
       int* tlo = tile + half * 2 * kPlane;
       int* thi = tlo + kPlane;
 #pragma unroll 1
@@ -122,7 +114,7 @@ encode_fused_kernel(const uint8_t* __restrict__ syms, const int32_t* __restrict_
         tlo[lane * kStride + j] = lohi.x;
         thi[lane * kStride + j] = lohi.y;
       }
-      bar_arrive(kFullBar + half);
+      rxt::bar_arrive<kThreads>(kFullBar + half);
     }
   } else {
     const int blk = base + lane;
@@ -131,7 +123,7 @@ encode_fused_kernel(const uint8_t* __restrict__ syms, const int32_t* __restrict_
     rxt::Count<true> count(init_total, delta, tfreeze);
     for (int c = 0; c < n_chunks; ++c) {
       const int half = c & 1;
-      bar_sync(kFullBar + half);
+      rxt::bar_sync<kThreads>(kFullBar + half);
       const int* tlo = tile + half * 2 * kPlane + lane;
       const int* thi = tlo + kPlane;
 #pragma unroll 1
@@ -156,7 +148,7 @@ encode_fused_kernel(const uint8_t* __restrict__ syms, const int32_t* __restrict_
           }
         }
       }
-      if (c + 2 < n_chunks) bar_arrive(kEmptyBar + half);
+      if (c + 2 < n_chunks) rxt::bar_arrive<kThreads>(kEmptyBar + half);
     }
     if (blk < B) {
       if (len >= 0) coder.terminate();  // the terminator at t == lens

@@ -278,8 +278,10 @@ def check_kernels(device: torch.device, n_blocks: int = 1024) -> dict:
     freeze engaged; at the reference CLI's (8,30,32), where K2 and K3 take
     their u64 instantiations and K4 and K5 must refuse the parameters; and
     at shapes off the even ones: B not a multiple of 32 (K4's partial last
-    group) with K not a multiple of 32 or 4 (K2's scalar loads), and K a
-    multiple of 4 but not of 8 (K2's last positions after its groups)."""
+    group) with K not a multiple of 32 or 4 (K2's scalar loads), K a
+    multiple of 4 but not of 8 (K2's last positions after its groups), and
+    K under 256 and not a multiple of 16 (K5's byte loads and last
+    positions)."""
     data = phase3_data(n_blocks, K, SEED)
     wide = KernelInputs(data, Parameters.tpu_wide(), 16, K, device)
     res = {"tpu_wide": compare_kernels(wide)}
@@ -289,7 +291,7 @@ def check_kernels(device: torch.device, n_blocks: int = 1024) -> dict:
     # The reference CLI's (8,30,32): 32-bit code values, 62-bit products.
     cli = KernelInputs(data[: 64 * 1024], Parameters.default(), 7, 1024, device)
     res["default_8_30_32"] = compare_kernels(cli, time_plain=False, reps=1)
-    for b, k in ((101, 1022), (70, 1020)):
+    for b, k in ((101, 1022), (70, 1020), (37, 220)):
         res[f"odd_{b}x{k}"] = compare_kernels(odd_inputs(data, b, k, device), time_plain=False,
                                               reps=1)
     return res

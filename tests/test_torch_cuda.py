@@ -196,15 +196,16 @@ def test_coder_instantiations(cuda_device, cfg, delta, fits):
 
 
 @pytest.mark.cuda
-def test_fused_equals_coder_at_main_shape(cuda_device):
-    """K4 against K1 -> K2 at the main path's 16384 x 4096 (64 MiB)."""
+@pytest.mark.parametrize("encoder", ["encode_fused", "encode_m"])
+def test_fused_equals_coder_at_main_shape(cuda_device, encoder):
+    """K4 and K5 against K1 -> K2 at the main path's 16384 x 4096 (64 MiB)."""
     from redux_tpu_torch import cuda_checks, testdata
-    from redux_tpu_torch.ops.encode import encode_blocks_fused, encode_blocks_ranked
+    from redux_tpu_torch.ops.encode import encode_blocks_ranked
     from redux_tpu_torch.params import Parameters
 
+    kernel = cuda_checks.SYMBOL_ENCODERS[encoder][0]
     x = cuda_checks.KernelInputs(testdata.mixed(64 << 20, 2024), Parameters.tpu_wide(), 16,
                                  4096, cuda_device)
     args = (x.syms, x.lens, x.init_cum, x.params, x.n_words, x.delta)
     assert x.syms.shape == (16384, 4096)
-    assert cuda_checks.triple_err(encode_blocks_fused(*args), encode_blocks_ranked(*args),
-                                  x.n_words) == 0
+    assert cuda_checks.triple_err(kernel(*args), encode_blocks_ranked(*args), x.n_words) == 0

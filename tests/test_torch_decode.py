@@ -19,7 +19,8 @@ from redux_tpu.params import Parameters as RefParameters
 from redux_tpu_torch.ops.coder import bytes_to_words
 from redux_tpu_torch.ops.decode import decode_blocks, products_fit_53
 from redux_tpu_torch.params import Parameters
-from torch_kernel_emulation import div53, div53_int, renorm
+from torch_kernel_emulation import (NODES, div53, div53_int, fenwick_add, fenwick_tree,
+                                    renorm)
 
 
 def _words(streams, extra_words):
@@ -109,21 +110,6 @@ def test_decoder_streams_ending_on_word_boundary():
         assert len(s) % 4 == 0
 
 
-NODES = 257  # Fenwick nodes 1..257 over the 257 symbol frequencies
-
-
-def _lowbit(i):
-    return i & -i
-
-
-def _tree(cdf):
-    """Node i holds the frequencies of symbols i - lowbit(i) .. i - 1."""
-    node = [0] * (NODES + 1)
-    for i in range(1, NODES + 1):
-        node[i] = int(cdf[i] - cdf[i - _lowbit(i)])
-    return node
-
-
 def _descent(node, value, base):
     """The kernel's symbol search: steps 256 .. 1, a node taken while its
     sum is <= the remainder, three levels a round (the 7 nodes below pos
@@ -149,13 +135,6 @@ def _descent(node, value, base):
     return pos, flo, flo + f
 
 
-def _add(node, v, d):
-    i = v + 1
-    while i <= NODES:
-        node[i] += d
-        i += _lowbit(i)
-
-
 @pytest.mark.parametrize("cfg,delta", [((8, 20, 22), 16), ((8, 15, 17), 255), ((8, 14, 16), 64)])
 def test_fenwick_descent_equals_the_row_search(cfg, delta):
     """Over random adapted rows with zero-width neighbours, adapted past
@@ -169,7 +148,7 @@ def test_fenwick_descent_equals_the_row_search(cfg, delta):
     freq[100:104] = 0
     freq[255:] = [0, 1]
     cdf = np.concatenate([[0], np.cumsum(freq)]).astype(np.int64)
-    node = _tree(cdf)
+    node = fenwick_tree(cdf)
 
     def check():
         count = int(cdf[-1])
@@ -185,11 +164,11 @@ def test_fenwick_descent_equals_the_row_search(cfg, delta):
             check()
         v = int(rng.choice([0, 7, 101, 255, 256, *rng.integers(0, 257, 3).tolist()]))
         cdf[v + 1 :] += delta
-        _add(node, v, delta)
+        fenwick_add(node, v, delta)
         updates += 1
     assert cdf[-1] > p.freq_max  # the freeze overshoot
     check()
-    assert node == _tree(cdf)
+    assert node == fenwick_tree(cdf)
 
 
 @pytest.mark.parametrize("cfg", [(8, 20, 22), (8, 15, 17)])
@@ -271,7 +250,7 @@ def _decode_block_emulated(words, n_sym, ic, p, delta):
         pos_bits += n
         return int(s, 2) if n else 0
 
-    node = _tree(ic.astype(np.int64))
+    node = fenwick_tree(ic.astype(np.int64))
     count = int(ic[-1])
     low, high, z = 0, cmax, read(cb)
     out = []
@@ -285,7 +264,7 @@ def _decode_block_emulated(words, n_sym, ic, p, delta):
         n = min(n1 + n3, cb)
         z = ((z << n) | read(n)) & cmax
         if count < p.freq_max:
-            _add(node, sym, delta)
+            fenwick_add(node, sym, delta)
             count += delta
         out.append(sym)
     return bytes(out)

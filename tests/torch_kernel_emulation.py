@@ -2,15 +2,20 @@
 (``redux_tpu_torch/csrc``), statement for statement where it matters, for
 the CPU tests: the reciprocal quotient (``rxt::div53``), the coder's total
 (``rxt::Count``), the renormalisation (``rxt::renorm``), the coder step and
-its branch-free emission (``rxt::Coder``, ``rxt::BitWriter``) and K1's
-chunk step (``rxt::model_chunk``).  The kernels themselves run only on the
-card; these run their algorithms here."""
+its branch-free emission (``rxt::Coder``, ``rxt::BitWriter``), K1's
+chunk step (``rxt::model_chunk``), the Fenwick model of K3 and K5
+(``rxt::Fenwick``) and one thread of K5 (``encode_m_thread``).  The
+kernels themselves run only on the card; these run their algorithms
+here."""
 
 import numpy as np
 
 M32 = 0xFFFFFFFF
 OWN, SLOTS = 9, 32 * 9  # row entries a lane owns in a chunk step; ints a row
 EARLIER = np.tril(np.ones((32, 32), bool), -1)  # [j, i]: i < j
+NODES = 257  # Fenwick nodes 1..257 over the 257 symbol frequencies
+WALK = 9  # ``rxt::kWalk``: nodes of an update walk
+GROUP = 16  # K5's positions a round: symbols a load
 
 
 def div53(a, b):
@@ -128,3 +133,109 @@ def model_chunk(row, v, n_act: int, delta: int):
         in_lane = np.cumsum(h, 1) - h  # exclusive in-lane prefix
         row += delta * (below[:, None] + in_lane).reshape(-1)
     return lo, hi
+
+
+def lowbit(i: int) -> int:
+    return i & -i
+
+
+def fenwick_tree(cdf):
+    """``rxt::Fenwick::init``: node i (1-based; index 0 unused) holds the
+    frequencies of symbols i - lowbit(i) .. i - 1."""
+    node = [0] * (NODES + 1)
+    for i in range(1, NODES + 1):
+        node[i] = int(cdf[i] - cdf[i - lowbit(i)])
+    return node
+
+
+def fenwick_add(node, v: int, d: int) -> None:
+    """freq[v] += d as the loop walk up from node v + 1."""
+    i = v + 1
+    while i <= NODES:
+        node[i] += d
+        i += lowbit(i)
+
+
+def fenwick_prefix(node, v: int):
+    """``rxt::Fenwick::prefix`` for a byte v: one node a set bit b of v,
+    node (v >> b) << b, unrolled over b < 8; ``low`` sums the terms of v's
+    trailing ones.  Returns ``(prefix(v), low)``."""
+    ones = v & ~(v + 1)  # v's trailing ones
+    total = low = 0
+    for b in range(8):
+        n = node[(v >> b) << b] if (v >> b) & 1 else 0
+        total += n
+        low += n if (ones >> b) & 1 else 0
+    return total, low
+
+
+def load_walk(node, v: int):
+    """``rxt::Fenwick::load_walk``: the nodes the update freq[v] += d
+    touches for a byte v in closed form, node (v | (2**b - 1)) + 1 for
+    every b < WALK (repeats included), and the values they hold."""
+    idx = [(v | ((1 << b) - 1)) + 1 for b in range(WALK)]
+    return idx, [node[i] for i in idx]
+
+
+def store_walk(node, walk, d: int) -> None:
+    """``rxt::Fenwick::store_walk``: each walk node becomes its loaded value + d."""
+    for i, v in zip(*walk):
+        node[i] = v + d
+
+
+def _load_syms(row, t: int, n: int, vec: bool):
+    """K5's ``load_syms``: symbols t .. t + GROUP - 1 below n (zeros past
+    it) as four little-endian u32 words, one 16-byte load when the group
+    is whole and ``vec``, byte loads otherwise."""
+    if t + GROUP <= n and vec:
+        return [int(w) for w in np.frombuffer(row[t : t + GROUP].tobytes(), "<u4")]
+    w = [0] * (GROUP // 4)
+    for j in range(GROUP):
+        if t + j < n:
+            w[j >> 2] |= int(row[t + j]) << (8 * (j & 3))
+    return w
+
+
+def encode_m_thread(row, n: int, init_cum, params, n_words: int, delta: int, n_rounds: int):
+    """One block of a CTA of ``csrc/encode_m.cu``: its lane of a model warp
+    and its lane of a coder warp, for a block of ``row`` (the K symbols of
+    its row, uint8) and length ``n`` (-1 for a pad lane).  Both lanes run
+    the CTA's ``n_rounds`` rounds of GROUP positions (its longest block
+    decides).  The model lane: the round's symbols loaded during the round
+    before (zeros past n); per position the closed-form bounds into the
+    round's half of the tile and the update walk stored as node + d, d =
+    delta while the position is below n and the total under freq_max, 0
+    otherwise (no branch).  The coder lane: the half, a whole round with
+    no guards (runs of 8 on the card) and the last one guarded, each
+    position coded (``rxt::Coder``) over its own copy of the total before
+    the update.  The barriers order the two lanes round by round, as here.
+    Returns ``(words, byte_len, ovf)`` as the kernel stores them."""
+    k = len(row)
+    vec = k % GROUP == 0
+    n = min(n, k)
+    node = fenwick_tree(np.asarray(init_cum, np.int64))
+    base, tot = int(init_cum[0]), int(init_cum[NODES])
+    tot_c = tot
+    tile = [[(0, 0)] * GROUP for _ in range(2)]
+    coder = Coder(n_words, params.code_bits)
+    nxt = _load_syms(row, 0, n, vec)
+    for r in range(n_rounds):
+        h, t0 = r & 1, r * GROUP
+        cur, nxt = nxt, _load_syms(row, t0 + GROUP, n, vec)
+        for j in range(GROUP):  # the model lane
+            v = (cur[j >> 2] >> (8 * (j & 3))) & 0xFF
+            pre, low = fenwick_prefix(node, v)
+            flo = base + pre
+            up = load_walk(node, v)
+            tile[h][j] = (flo, flo + up[1][0] - low)
+            d = delta if t0 + j < n and tot < params.freq_max else 0
+            store_walk(node, up, d)
+            tot += d
+        whole = t0 + GROUP <= n  # the coder lane
+        for j in range(GROUP):
+            if whole or t0 + j < n:
+                coder.step(*tile[h][j], tot_c)
+                tot_c += delta if tot_c < params.freq_max else 0
+    if n >= 0:
+        coder.terminate()
+    return coder.finish()
