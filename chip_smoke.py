@@ -12,7 +12,12 @@ sharded over a device list (``data_parallel_mesh()`` and two shards on
 one card), plus the sharded K5 entry at the main path's shapes.  Each
 route's archive must equal the default route's, each round trip must be
 byte-equal, and each route must have launched its kernels (counts reset
-just before it, read just after).  Phases print one line each; the line
+just before it, read just after).  Phase 8 drives the other routes: the
+CLI at its defaults ((8,30,32), K1 -> K2 and K3 in their u64
+instantiations) over the same 64 MiB through files, those kernels against
+their plain versions at the main shape, ``api.encode_auto`` ->
+``decode_auto`` at 64 MiB and at 256 KiB (the compact range), and the
+native serial codec through ``--format redux``.  Phases print one line each; the line
 before the last is the kernels' JSON summary (each kernel's time at the
 main shapes beside its bound, ``cuda_checks.kernel_bounds``; no single
 PyTorch call computes any of them, so ``library_ms`` is null) and the
@@ -71,13 +76,161 @@ def _route(name, data, ref_arch, device, launched):
     return arch, launches
 
 
+def _cli(argv, dev):
+    """``redux_tpu_torch.cli.main(argv)`` in-process (``--device cpu`` added
+    off the card); returns its stderr line, raises unless it exits 0."""
+    import io
+
+    from redux_tpu_torch import cli
+
+    err, saved = io.StringIO(), sys.stderr
+    sys.stderr = err
+    try:
+        rc = cli.main(argv + ([] if dev.type == "cuda" else ["--device", "cpu"]))
+    finally:
+        sys.stderr = saved
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)}: exit {rc}: {err.getvalue().strip()}")
+    return err.getvalue().strip()
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase8(dev, data, native_build_s, small_bytes=256 << 10, redux_bytes=1 << 20):
+    """Phase 8: the routes and the CLI on ``data`` (the main input).
+
+    (a) the CLI at its defaults through files under ``build/``; (b) K1-K3
+    at (8,30,32) at the main shape against their plain versions, each
+    beside its bound; (c) ``encode_auto`` -> ``decode_auto`` on ``data``
+    (three block encodes, one decode); (d) the auto route in the compact
+    range; (e) the native library through ``--format redux``.  Files go
+    under ``build/chip_smoke/`` and are deleted at the end."""
+    import shutil
+
+    import redux_tpu_torch
+    from redux_tpu_torch import api, container, cuda_checks, native, oracle, testdata
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        # (a) The CLI at its defaults: (8,30,32), delta 16, the prior, auto blocks.
+        src, arch_f, back_f = work / "in.bin", work / "in.rxt", work / "back.bin"
+        src.write_bytes(data)
+        for mode, argv, must in (
+                ("compress", ["-c", "-i", str(src), "-o", str(arch_f)], ("model_values", "encode")),
+                ("decompress", ["-d", "-i", str(arch_f), "-o", str(back_f)], ("decode",))):
+            redux_tpu_torch.reset_launch_counts()
+            t0 = time.perf_counter()
+            line = _cli(argv, dev)
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            counts = redux_tpu_torch.launch_counts()
+            if not all(counts[k] > 0 for k in must):
+                raise AssertionError(f"cli {mode}: launches {counts}")
+            print(f"cli {mode}: {dt:.3f} s wall clock with file I/O, {line!r}, "
+                  f"launches {json.dumps(counts)}")
+        if back_f.read_bytes() != data:
+            raise AssertionError("cli: round trip is not byte-equal")
+        header, _ = container.parse_archive(arch_f.read_bytes())
+        p = header.params
+        print(f"cli: archive {arch_f.stat().st_size} bytes, ({p.symbol_bits},{p.freq_bits},"
+              f"{p.code_bits}) delta {header.delta}, {header.n_blocks} blocks of "
+              f"{header.block_size}, {sum(header.block_raw)} stored raw, round trip byte-equal")
+
+        # (b) K1-K3 at (8,30,32) at the main shape (K2/K3: u64 divisions).
+        x = cuda_checks.KernelInputs(data, api.Parameters.default(), 16, header.block_size, dev)
+        res = cuda_checks.compare_kernels(x, time_plain=dev.type == "cuda")
+        _sync(dev)
+        for k in cuda_checks.KERNELS:
+            r = res[k]
+            if r.get("raises"):
+                print(f"8_30_32 main-shape {k}: raises {r['raises']} (params off its path)")
+                continue
+            plain = f"{r['plain_ms']:.3f} ms" if r["plain_ms"] is not None else "not timed"
+            print(f"8_30_32 main-shape {k}: kernel {r['ms']:.3f} ms, plain {plain}, bound "
+                  f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} bytes, {r['ops']} "
+                  f"int32 ops) ({x.syms.shape[0]} x {x.k}), equal")
+        if not (res["encode_fused"].get("raises") and res["encode_m"].get("raises")):
+            raise AssertionError("K4 and K5 must refuse (8,30,32)")
+
+        # (c) encode_auto -> decode_auto at full size, params None.
+        redux_tpu_torch.reset_launch_counts()
+        t0 = time.perf_counter()
+        auto = api.encode_auto(data, device=dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+        back = api.decode_auto(auto, device=dev)
+        _sync(dev)
+        t2 = time.perf_counter()
+        counts = redux_tpu_torch.launch_counts()
+        if back != data:
+            raise AssertionError("auto: round trip is not byte-equal")
+        want = {"model_values": 3, "encode": 3, "decode": 1, "encode_fused": 0, "encode_m": 0}
+        if counts != want:
+            raise AssertionError(f"auto: launches {counts}, want {want}")
+        cands = {
+            "prior": api.encode(data, use_prior=True, device=dev),
+            "no prior": api.encode(data, use_prior=False, device=dev),
+            "16 KiB blocks": api.encode(data, block_size=1 << 14, use_prior=True, device=dev),
+        }
+        best = min(cands.values(), key=len)
+        if auto != best:
+            raise AssertionError("auto: archive is not the smallest block-archive candidate")
+        print(f"auto {len(data)} bytes: encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s wall "
+              f"clock, archive {len(auto)} bytes, launches {json.dumps(counts)}; candidates "
+              + ", ".join(f"{k} {len(v)}" for k, v in cands.items()))
+
+        # (d) The compact range: block archives, compact archives, the bare stream.
+        small = testdata.text_like(small_bytes, SEED)
+        auto = api.encode_auto(small, device=dev)
+        if api.decode_auto(auto, device=dev) != small:
+            raise AssertionError("auto (compact range): round trip is not byte-equal")
+        cands = {
+            "rxt prior": api.encode(small, use_prior=True, device=dev),
+            "rxt no prior": api.encode(small, use_prior=False, device=dev),
+            **{f"compact cfg {c}": api.encode_compact(small, c) for c in api._COMPACT_AUTO_CFGS},
+            "bare stream": native.compress_bytes(small),
+        }
+        won = [k for k, v in cands.items() if v == auto]
+        if not won or len(auto) != min(map(len, cands.values())):
+            raise AssertionError("auto (compact range): not the smallest candidate")
+        print(f"auto {len(small)} bytes: {won[0]} won at {len(auto)} bytes; candidates "
+              + ", ".join(f"{k} {len(v)}" for k, v in cands.items()))
+
+        # (e) The native serial codec through the CLI's --format redux.
+        text = testdata.text_like(redux_bytes, SEED + 1)
+        src, stream_f, back_f = work / "text.bin", work / "text.rdx", work / "text.back"
+        src.write_bytes(text)
+        t0 = time.perf_counter()
+        _cli(["-c", "--format", "redux", "-i", str(src), "-o", str(stream_f)], dev)
+        t1 = time.perf_counter()
+        _cli(["-d", "-i", str(stream_f), "-o", str(back_f)], dev)
+        t2 = time.perf_counter()
+        if back_f.read_bytes() != text:
+            raise AssertionError("cli --format redux: round trip is not byte-equal")
+        head = text[: 16 << 10]
+        if native.compress_bytes(head) != oracle.compress_bytes(head):
+            raise AssertionError("native: differs from the oracle on 16 KiB")
+        print(f"native: {native.library_path().name} built in {native_build_s:.3f} s; cli "
+              f"--format redux {len(text)} -> {stream_f.stat().st_size} bytes in "
+              f"{t1 - t0:.3f} s, back in {t2 - t1:.3f} s, byte-equal; 16 KiB equal to the oracle")
+        print(f"phase 8: {time.perf_counter() - t_phase:.3f} s wall clock")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     import redux_tpu_torch
-    from redux_tpu_torch import _build, api, cuda_checks, testdata
+    from redux_tpu_torch import _build, api, cuda_checks, native, testdata
 
     dev = torch.device("cuda", 0)
 
@@ -97,6 +250,11 @@ def main() -> int:
     print(f"build: {lib.name} in {time.perf_counter() - t0:.3f} s ({_build.nvcc_version()})")
     for line in _build.resource_usage():
         print(f"ptxas: {line}")
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    native.get_lib()
+    native_build_s = time.perf_counter() - t0
+    print(f"build: {native_lib.name} (host serial codec, g++) in {native_build_s:.3f} s")
 
     # Phase 3: kernels against their plain versions.
     res = cuda_checks.check_kernels(dev)
@@ -114,8 +272,10 @@ def main() -> int:
         print(f"kernels[{case}]: {r['raw_blocks']} blocks stored raw")
 
     # Phase 4: goldens.
-    for fname, n_in, n_arch in cuda_checks.check_goldens(dev, ROOT / "tests" / "golden_torch"):
-        print(f"golden {fname}: {n_in} -> {n_arch} bytes, encode and decode byte-equal")
+    for fname, fmt, n_in, n_arch in cuda_checks.check_goldens(dev, ROOT / "tests" / "golden_torch"):
+        where = "on the card" if fmt == "rxt" else "on the host (native)"
+        print(f"golden {fname} ({fmt}, {where}): {n_in} -> {n_arch} bytes, encode and decode "
+              "byte-equal")
     torch.cuda.synchronize()
 
     # Phase 5: the main path at real size.
@@ -172,6 +332,9 @@ def main() -> int:
           f"{t_m:.3f} s wall clock with host copies, launches {json.dumps(m_launches)}")
     path_launches = dict(launches, encode_fused=fused_launches["encode_fused"],
                          encode_m=m_launches["encode_m"])
+
+    # Phase 8: the CLI, the auto and compact routes and the native codec.
+    phase8(dev, data, native_build_s)
 
     kernels = []
     for k, (source, replaces) in cuda_checks.KERNELS.items():

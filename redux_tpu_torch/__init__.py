@@ -13,12 +13,19 @@ CUDA device they raise.  ``device="cpu"`` runs the kernels' plain PyTorch
 versions, as the tests do; a list of devices shards the blocks over them
 (``redux_tpu_torch.parallel``).  K5 (``ops.encode_m``) is the independent
 model-in-kernel encoder, as in the reference.
+
+``compress`` / ``decompress`` / ``compress_bytes`` / ``decompress_bytes``
+are the reference's package-level stream API: the sequential codec of
+:mod:`redux_tpu_torch.oracle` (reference-format streams, host code).
+``api.encode_auto`` / ``decode_auto`` and the compact archive are the
+other routes, and ``python -m redux_tpu_torch.cli`` the command line.
 """
 
 from __future__ import annotations
 
 from .api import decode, encode
 from .errors import EofError, InvalidInputError, ReduxError, ReduxIOError
+from .oracle import compress, compress_bytes, decompress, decompress_bytes
 from .ops import decode as _decode_op
 from .ops import encode as _encode_op
 from .ops import encode_m as _encode_m_op
@@ -26,7 +33,8 @@ from .ops import model as _model_op
 from .params import Parameters
 
 __all__ = [
-    "encode", "decode", "Parameters", "launch_counts", "reset_launch_counts",
+    "encode", "decode", "compress", "decompress", "compress_bytes", "decompress_bytes",
+    "Parameters", "launch_counts", "reset_launch_counts",
     "ReduxError", "EofError", "InvalidInputError", "ReduxIOError",
 ]
 

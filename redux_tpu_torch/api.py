@@ -21,6 +21,14 @@ them (``parallel.mesh``; the explicit counterpart of the reference's
 ``_dp_mesh`` branches, :98-113, :300-316, :483-510).
 ``parallel.data_parallel_mesh()`` names every visible GPU.  The archive
 bytes do not depend on the devices.
+
+The routes of ``redux_tpu/api.py:579-720`` follow: ``encode_compact`` /
+``decode_compact`` (one v2 block in a compact archive, host code through
+:mod:`redux_tpu_torch.native`) and ``encode_auto`` / ``decode_auto`` (the
+smallest of the self-decodable candidates, and the decoder that tells
+them apart).  Unlike the reference, they never fall back to the Python
+oracle when the native library cannot be built: that fallback would
+change ``encode_auto``'s candidates, and so its bytes, silently.
 """
 
 from __future__ import annotations
@@ -31,10 +39,10 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from . import container
+from . import container, native
 from .container import DEFAULT_BLOCK_SIZE, DEFAULT_DELTA, DEFAULT_PRIOR_BUDGET
 from .convert import init_cum_from_numpy
-from .errors import InvalidInputError
+from .errors import InvalidInputError, ReduxError
 from .models.dense import prior_init_cum, quantize_prior, uniform_init_cum
 from .ops.coder import bytes_to_words, max_block_words, words_to_bytes
 from .ops.decode import decode_blocks
@@ -352,3 +360,97 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     container.verify_crc(header, out)
     clock.mark("assemble")
     return out
+
+
+def encode_compact(data: bytes, cfg: int) -> bytes:
+    """Compress into an RXT compact archive: one v2 block under a 5-7 byte
+    header, for inputs where the block archive's header would erase the
+    win.  ``cfg`` indexes ``container.COMPACT_CONFIGS``.  Host code (the
+    native serial coder); raises ``native.NativeUnavailable`` if the
+    library cannot be built."""
+    params, delta = container.compact_config(cfg)
+    payload = native.compress_block_v2(data, params, None, delta)
+    return container.build_compact(cfg, len(data), payload, container.compute_crc(data))
+
+
+def decode_compact(archive: bytes) -> bytes:
+    """Decode an RXT compact archive; InvalidInputError on corruption.
+    Host code, as :func:`encode_compact`."""
+    params, delta, orig_len, crc16, payload = container.parse_compact(archive)
+    out = native.decompress_block_v2(payload, orig_len, params, None, delta)
+    container.verify_crc16(crc16, out)
+    return out
+
+
+# Compact candidates of encode_auto: delta 2 suits high-entropy and binary
+# inputs, 16 suits text.  Indices into container.COMPACT_CONFIGS.
+_COMPACT_AUTO_CFGS = (0, 2, 4)  # delta 2, 8, 16
+_COMPACT_MAX = 1 << 20  # the serial single-block encode pays below ~1 MiB
+
+
+def encode_auto(
+    data: bytes,
+    params: Optional[Parameters] = None,
+    block_size: Optional[int] = None,
+    *,
+    device: Devices = "cuda",
+) -> bytes:
+    """Compress to the smallest of the self-decodable candidates:
+
+    1. the block archive with the warm-start prior;
+    2. from 4096 bytes, the block archive with uniform init;
+    3. above ``_COMPACT_MAX`` with blocks under 16 KiB, the block archive
+       with 16 KiB blocks;
+    4. up to ``_COMPACT_MAX``, compact archives at ``_COMPACT_AUTO_CFGS``
+       and, when ``params`` is None, the bare reference-format stream
+       (unless its first bytes would misroute in :func:`decode_auto`).
+
+    :func:`decode_auto` tells every candidate apart.  ``device`` runs the
+    block encodes, as in :func:`encode`; the compact candidates and the
+    bare stream are host code through :mod:`redux_tpu_torch.native`,
+    which raises if it cannot be built (no fallback to the oracle).
+    """
+    candidates = [encode(data, params=params, block_size=block_size, use_prior=True,
+                         device=device)]
+    if len(data) >= 4096:  # the reference's threshold for the uniform candidate
+        candidates.append(
+            encode(data, params=params, block_size=block_size, use_prior=False, device=device)
+        )
+    if len(data) > _COMPACT_MAX and (block_size or DEFAULT_BLOCK_SIZE) < (1 << 14):
+        candidates.append(
+            encode(data, params=params, block_size=1 << 14, use_prior=True, device=device)
+        )
+    if 0 < len(data) <= _COMPACT_MAX:
+        for cfg in _COMPACT_AUTO_CFGS:
+            candidates.append(encode_compact(data, cfg))
+        if params is None:
+            ref = native.compress_bytes(data, Parameters.default())
+            # A stream starting with the block archive's magic would
+            # misroute in decode_auto, and one starting with the compact
+            # magic could pass a compact parse and crc16 by chance.
+            if not container.is_rxt_archive(ref) and not (
+                len(ref) and ref[0] == container.COMPACT_MAGIC
+            ):
+                candidates.append(ref)
+    return min(candidates, key=len)
+
+
+def decode_auto(data: bytes, params: Optional[Parameters] = None, *,
+                device: Devices = "cuda") -> bytes:
+    """Decode a block archive, a compact archive or a bare reference-format
+    stream.
+
+    Reference streams carry no magic, so what is neither archive (or a
+    compact-looking stream that fails its parse or crc16) is decoded as a
+    bare stream at ``params`` (default: the reference CLI's (8,30,32)).
+    ``device`` runs the block archive's decode, as in :func:`decode`; the
+    rest is host code through :mod:`redux_tpu_torch.native`.
+    """
+    if container.is_rxt_archive(data):
+        return decode(data, device=device)
+    if container.is_compact_archive(data):
+        try:
+            return decode_compact(data)
+        except ReduxError:
+            pass
+    return native.decompress_bytes(data, params)

@@ -1,8 +1,8 @@
 """RXT block-parallel archive format, version 2.
 
 Counterpart: ``redux_tpu/container.py`` (``build_archive``,
-``parse_archive``, ``compute_crc``, ``verify_crc``, ``is_rxt_archive``),
-byte for byte.  The compact single-block format is not ported yet.
+``parse_archive``, ``compute_crc``, ``verify_crc``, ``is_rxt_archive``, and
+the compact single-block format at the end of this module), byte for byte.
 
 Layout (all integers little-endian):
 
@@ -208,3 +208,95 @@ def compute_crc(data: bytes) -> int:
 
 def is_rxt_archive(data: bytes) -> bool:
     return data[:4] == MAGIC
+
+
+# ---------------------------------------------------------------------------
+# The compact single-block archive ("RXT compact").
+#
+# The 32-byte header and 4-byte block length above would erase the coding
+# win on small inputs.  The compact archive frames ONE v2 block payload
+# with a 5-7 byte header:
+#
+#   [0xB3][ver<<4 | cfg][varint orig_len][crc16][payload]
+#
+# cfg indexes COMPACT_CONFIGS (params and adaptation delta; uniform init:
+# a 512-byte prior never pays at these sizes).  crc16 is the low half of
+# the zlib crc32 that the block archive stores.
+# ---------------------------------------------------------------------------
+
+COMPACT_MAGIC = 0xB3
+COMPACT_VERSION = 1
+# (freq_bits, code_bits, delta) at symbol_bits 8; index = wire cfg id.
+COMPACT_CONFIGS = [
+    (20, 22, 2), (20, 22, 4), (20, 22, 8), (20, 22, 12),
+    (20, 22, 16), (20, 22, 32), (20, 22, 1), (20, 22, 64),
+]
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _read_varint(data: bytes, off: int) -> tuple[int, int]:
+    n = shift = 0
+    while True:
+        if off >= len(data) or shift > 56:
+            raise InvalidInputError()
+        b = data[off]
+        off += 1
+        n |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return n, off
+
+
+def compact_config(cfg: int) -> tuple[Parameters, int]:
+    """``(params, delta)`` of a compact cfg id; InvalidInputError if unknown."""
+    if not 0 <= cfg < len(COMPACT_CONFIGS):
+        raise InvalidInputError()
+    fb, cb, delta = COMPACT_CONFIGS[cfg]
+    return Parameters(8, fb, cb), delta
+
+
+def build_compact(cfg: int, orig_len: int, payload: bytes, crc: int) -> bytes:
+    compact_config(cfg)  # validates
+    head = bytes([COMPACT_MAGIC, (COMPACT_VERSION << 4) | cfg])
+    head += _varint(orig_len)
+    head += struct.pack("<H", crc & 0xFFFF)
+    return head + payload
+
+
+def is_compact_archive(data: bytes) -> bool:
+    return len(data) >= 2 and data[0] == COMPACT_MAGIC
+
+
+def parse_compact(archive: bytes) -> tuple[Parameters, int, int, int, bytes]:
+    """-> ``(params, delta, orig_len, crc16, payload)``; raises
+    InvalidInputError on a malformed header, and on an ``orig_len`` larger
+    than the payload could carry (:func:`max_decoded_len`), which caps the
+    work a crafted archive can demand."""
+    if len(archive) < 4 or archive[0] != COMPACT_MAGIC:
+        raise InvalidInputError()
+    if archive[1] >> 4 != COMPACT_VERSION:
+        raise InvalidInputError()
+    params, delta = compact_config(archive[1] & 0x0F)
+    orig_len, off = _read_varint(archive, 2)
+    if len(archive) < off + 2:
+        raise InvalidInputError()
+    (crc16,) = struct.unpack_from("<H", archive, off)
+    payload = archive[off + 2 :]
+    if orig_len > max_decoded_len(params, len(payload)):
+        raise InvalidInputError()
+    return params, delta, orig_len, crc16, payload
+
+
+def verify_crc16(crc16: int, data: bytes) -> None:
+    """Raise InvalidInputError if ``data`` fails the compact archive's crc16."""
+    if zlib.crc32(data) & 0xFFFF != crc16:
+        raise InvalidInputError()

@@ -14,7 +14,7 @@ import pathlib
 
 import torch
 
-from . import api
+from . import api, native
 from .convert import init_cum_from_numpy
 from .ops.decode import decode_blocks, decode_blocks_plain
 from .ops.encode import (encode_blocks, encode_blocks_fused, encode_blocks_fused_plain,
@@ -298,17 +298,28 @@ def check_kernels(device: torch.device, n_blocks: int = 1024) -> dict:
 
 
 def check_goldens(device: torch.device, golden_dir: pathlib.Path) -> list:
-    """Phase 4: encode each golden's input on the card and compare with the
-    stored archive byte for byte; decode each stored archive on the card."""
+    """Phase 4: encode each golden's input and compare with the stored file
+    byte for byte, and decode the stored file.  Block archives (``rxt``)
+    run on the card; the compact archive and the bare reference stream
+    (``redux``) are host code (:mod:`redux_tpu_torch.native`).  Returns
+    ``(file, format, input bytes, stored bytes)`` a golden."""
     results = []
     for entry in json.loads((golden_dir / "manifest.json").read_text()):
         data = golden_input(entry["kind"], entry["n"], entry["seed"])
         _require(hashlib.sha256(data).hexdigest() == entry["input_sha256"],
                  f"{entry['file']}: generated input differs from the manifest")
         stored = (golden_dir / entry["file"]).read_bytes()
-        mine = api.encode(data, params=Parameters(*entry["params"]), delta=entry["delta"],
-                          device=device)
-        _require(mine == stored, f"{entry['file']}: encode differs from the golden archive")
-        _require(api.decode(stored, device=device) == data, f"{entry['file']}: decode differs")
-        results.append((entry["file"], len(data), len(stored)))
+        params = Parameters(*entry["params"])
+        fmt = entry.get("format", "rxt")
+        if fmt == "compact":
+            mine, back = api.encode_compact(data, entry["cfg"]), api.decode_compact(stored)
+        elif fmt == "redux":
+            mine = native.compress_bytes(data, params)
+            back = native.decompress_bytes(stored, params)
+        else:
+            mine = api.encode(data, params=params, delta=entry["delta"], device=device)
+            back = api.decode(stored, device=device)
+        _require(mine == stored, f"{entry['file']}: encode differs from the golden")
+        _require(back == data, f"{entry['file']}: decode differs")
+        results.append((entry["file"], fmt, len(data), len(stored)))
     return results

@@ -1,16 +1,22 @@
-"""Initial cumulative rows of the dense adaptive model (numpy).
+"""The dense adaptive model of one block (numpy).
 
 Counterpart: ``redux_tpu/models/dense.py`` — ``uniform_init_cum``,
-``quantize_prior`` and ``prior_init_cum``, the same arithmetic.  The
-model state of one block is one cumulative row of ``symbol_count + 1``
-entries; these functions build the row every block starts from.
+``quantize_prior``, ``prior_init_cum`` and ``DenseModel``, the same
+arithmetic.  The model state of one block is one cumulative row of
+``symbol_count + 1`` entries; the functions build the row every block
+starts from, and :class:`DenseModel` adapts it symbol by symbol for the
+sequential codec (:func:`redux_tpu_torch.oracle.compress_block`).
 """
 
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import numpy as np
 
+from ..errors import InvalidInputError
 from ..params import Parameters
+from .base import Model
 
 
 def uniform_init_cum(params: Parameters) -> np.ndarray:
@@ -49,3 +55,62 @@ def prior_init_cum(extra: np.ndarray, params: Parameters) -> np.ndarray:
     cum = np.zeros(n + 1, dtype=np.int64)
     cum[1:] = np.cumsum(1 + extra)
     return cum
+
+
+class DenseModel(Model):
+    """The per-block model of the RXT v2 format: one cumulative row, an
+    adaptation increment ``delta`` and the freeze at ``freq_max``.
+
+    With the uniform row (``init_cum=None``) and ``delta=1`` it behaves
+    as the linear and Fenwick models do; with a warm-start row it is the
+    block model of an archive with a prior.
+    """
+
+    def __init__(
+        self,
+        params: Parameters,
+        init_cum: np.ndarray | None = None,
+        delta: int = 1,
+    ):
+        self.params = params
+        if init_cum is None:
+            init_cum = uniform_init_cum(params)
+        if init_cum.shape != (params.symbol_count + 1,):
+            raise InvalidInputError()
+        if int(init_cum[-1]) >= params.freq_max:
+            # A row so heavy that adaptation is frozen from the start.
+            raise InvalidInputError()
+        if delta < 1:
+            raise InvalidInputError()
+        self.delta = delta
+        self.cum = init_cum.astype(np.int64).copy()
+        self._iota = np.arange(params.symbol_count + 1, dtype=np.int64)
+
+    def _update(self, symbol: int) -> None:
+        if self.total_frequency() < self.params.freq_max:
+            self.cum += self.delta * (self._iota > symbol)
+
+    def total_frequency(self) -> int:
+        return int(self.cum[self.params.symbol_count])
+
+    def get_frequency(self, symbol: int) -> Tuple[int, int]:
+        if symbol > self.params.symbol_eof:
+            raise InvalidInputError()
+        res = (int(self.cum[symbol]), int(self.cum[symbol + 1]))
+        self._update(symbol)
+        return res
+
+    def get_symbol(self, value: int) -> Tuple[int, int, int]:
+        # The first i with value < cum[i+1].
+        if value >= self.total_frequency():
+            raise InvalidInputError()
+        i = int(np.sum(self.cum[1:] <= value))
+        res = (i, int(self.cum[i]), int(self.cum[i + 1]))
+        self._update(i)
+        return res
+
+    def get_freq_table(self) -> List[Tuple[int, int]]:
+        return [
+            (int(self.cum[i]), int(self.cum[i + 1]))
+            for i in range(self.params.symbol_count)
+        ]

@@ -32,7 +32,7 @@ launches = 0  # kernel launches of decode_blocks (CUDA tensors only)
 
 
 def decode_blocks_plain(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                        params: Parameters, k: int, delta: int) -> torch.Tensor:
+                        params: Parameters, k: int, delta: int = 1) -> torch.Tensor:
     """The plain PyTorch version: the decoder over all blocks at once, one
     Python step per symbol, in int64 with 32-bit masks.  Runs on any
     device.  Returns ``(B, k)`` uint8."""
@@ -86,7 +86,7 @@ def decode_blocks_plain(words: torch.Tensor, lens: torch.Tensor, init_cum: torch
 
 
 def decode_blocks(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                  params: Parameters, k: int, delta: int) -> torch.Tensor:
+                  params: Parameters, k: int, delta: int = 1) -> torch.Tensor:
     """Decode ``B`` blocks of ``k`` symbols at most.
 
     Args: ``(B, W)`` int32 (or uint32) big-endian words, zero-padded past

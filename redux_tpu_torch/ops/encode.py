@@ -33,7 +33,7 @@ fused_launches = 0  # kernel launches of encode_blocks_fused (CUDA tensors only)
 
 
 def encode_blocks_plain(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor,
-                        init_total: int, params: Parameters, n_words: int, delta: int):
+                        init_total: int, params: Parameters, n_words: int, delta: int = 1):
     """The plain PyTorch version: the coder over all blocks at once, one
     Python step per position, in int64 with 32-bit masks.  Runs on any
     device.  Returns ``(words, byte_lens, ovf)`` as :func:`encode_blocks`."""
@@ -50,7 +50,7 @@ def encode_blocks_plain(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor,
 
 
 def encode_blocks(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, init_total: int,
-                  params: Parameters, n_words: int, delta: int):
+                  params: Parameters, n_words: int, delta: int = 1):
     """Code ``B`` blocks from their model values.
 
     Args: ``(B, K)`` int32 ``lo``/``hi`` (``lo_t = cdf_t[v_t]``,
@@ -96,14 +96,14 @@ def encode_blocks(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, init_t
 
 
 def encode_blocks_fused_plain(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                              params: Parameters, n_words: int, delta: int):
+                              params: Parameters, n_words: int, delta: int = 1):
     """The plain PyTorch version of K4: K1's plain version feeding K2's."""
     lo, hi = model_lohi_plain(syms, lens, init_cum, params, delta)
     return encode_blocks_plain(lo, hi, lens, int(init_cum[-1]), params, n_words, delta)
 
 
 def encode_blocks_fused(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                        params: Parameters, n_words: int, delta: int):
+                        params: Parameters, n_words: int, delta: int = 1):
     """Code ``B`` blocks straight from their symbols in one kernel (K4).
 
     Args: ``(B, K)`` uint8 ``syms``, ``(B,)`` int32 ``lens <= K``
@@ -145,7 +145,7 @@ def fused_selected(params: Parameters) -> bool:
 
 
 def encode_blocks_ranked(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                         params: Parameters, n_words: int, delta: int):
+                         params: Parameters, n_words: int, delta: int = 1):
     """The production encode: K1 model values feed the K2 coder, or, when
     :func:`fused_selected`, the fused K4 alone (the same bytes).
 

@@ -26,7 +26,7 @@ launches = 0  # kernel launches of encode_blocks_m (CUDA tensors only)
 
 
 def encode_blocks_m_plain(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                          params: Parameters, n_words: int, delta: int):
+                          params: Parameters, n_words: int, delta: int = 1):
     """The plain PyTorch version (``pallas_encode.py:609-632``): a dense
     row per block, masked-max lookups and the running total, one Python
     step per position.  Runs on any device."""
@@ -56,7 +56,7 @@ def encode_blocks_m_plain(syms: torch.Tensor, lens: torch.Tensor, init_cum: torc
 
 
 def encode_blocks_m(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                    params: Parameters, n_words: int, delta: int):
+                    params: Parameters, n_words: int, delta: int = 1):
     """Code ``B`` blocks from their symbols with the model in the kernel (K5).
 
     Same arguments and returns as :func:`redux_tpu_torch.ops.encode.encode_blocks_fused`

@@ -20,7 +20,7 @@ launches = 0  # kernel launches of model_lohi (CUDA tensors only)
 
 
 def model_lohi_plain(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                     params: Parameters, delta: int):
+                     params: Parameters, delta: int = 1):
     """The plain PyTorch version: the same state machine over all blocks
     at once, one Python step per position.  Runs on any device."""
     b, k = syms.shape
@@ -40,7 +40,7 @@ def model_lohi_plain(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Ten
 
 
 def model_lohi(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-               params: Parameters, delta: int):
+               params: Parameters, delta: int = 1):
     """``(lo, hi)`` int32 ``(B, K)`` planes for ``(B, K)`` uint8 symbols.
 
     ``lens`` is ``(B,)`` int32, ``init_cum`` the ``(symbol_count + 1,)``

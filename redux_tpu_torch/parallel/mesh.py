@@ -91,7 +91,7 @@ def _sharded(fn: Callable, mesh: Mesh, lanes: Sequence[tuple], replicated: Seque
 
 
 def encode_blocks_ranked_sharded(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                                 params: Parameters, n_words: int, mesh: Mesh, delta: int):
+                                 params: Parameters, n_words: int, mesh: Mesh, delta: int = 1):
     """Sharded :func:`redux_tpu_torch.ops.encode.encode_blocks_ranked` (K1 -> K2,
     or K4 under ``REDUX_TPU_ENC_FUSED``, inside each shard).  Same
     contract; any lane count."""
@@ -101,7 +101,7 @@ def encode_blocks_ranked_sharded(syms: torch.Tensor, lens: torch.Tensor, init_cu
 
 
 def encode_blocks_m_sharded(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                            params: Parameters, n_words: int, mesh: Mesh, delta: int):
+                            params: Parameters, n_words: int, mesh: Mesh, delta: int = 1):
     """Sharded :func:`redux_tpu_torch.ops.encode_m.encode_blocks_m` (K5).
     Same contract; any lane count."""
     return _sharded(
@@ -110,7 +110,7 @@ def encode_blocks_m_sharded(syms: torch.Tensor, lens: torch.Tensor, init_cum: to
 
 
 def decode_blocks_sharded(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                          params: Parameters, k: int, mesh: Mesh, delta: int):
+                          params: Parameters, k: int, mesh: Mesh, delta: int = 1):
     """Sharded :func:`redux_tpu_torch.ops.decode.decode_blocks` (K3), the
     counterpart of ``decode_blocks_pallas_sharded``.  Same contract; any
     lane count."""

@@ -209,3 +209,57 @@ def test_fused_equals_coder_at_main_shape(cuda_device, encoder):
     args = (x.syms, x.lens, x.init_cum, x.params, x.n_words, x.delta)
     assert x.syms.shape == (16384, 4096)
     assert cuda_checks.triple_err(kernel(*args), encode_blocks_ranked(*args), x.n_words) == 0
+
+
+@pytest.mark.cuda
+def test_cli_and_auto_routes_on_the_card(cuda_device, tmp_path):
+    """The CLI at its defaults ((8,30,32): K1, then K2 and K3 in their u64
+    instantiations) round-trips 1 MiB through files on the card and gives
+    the CPU path's archive; ``encode_auto`` -> ``decode_auto`` above the
+    compact range launches three encodes and one decode."""
+    import redux_tpu_torch
+    from redux_tpu_torch import api, cli, testdata
+
+    data = testdata.mixed(1 << 20, 9)
+    src, arch, back = tmp_path / "in", tmp_path / "arch", tmp_path / "back"
+    src.write_bytes(data)
+    redux_tpu_torch.reset_launch_counts()
+    assert cli.main(["-c", "-i", str(src), "-o", str(arch)]) == 0
+    assert cli.main(["-d", "-i", str(arch), "-o", str(back)]) == 0
+    counts = redux_tpu_torch.launch_counts()
+    assert counts["model_values"] > 0 and counts["encode"] > 0 and counts["decode"] > 0, counts
+    assert back.read_bytes() == data
+    assert arch.read_bytes() == api.encode(data, params=api.Parameters.default(), device="cpu")
+    big = testdata.mixed((1 << 20) + 4096, 10)
+    redux_tpu_torch.reset_launch_counts()
+    assert api.decode_auto(api.encode_auto(big, device=cuda_device), device=cuda_device) == big
+    counts = redux_tpu_torch.launch_counts()
+    assert (counts["model_values"], counts["encode"], counts["decode"]) == (3, 3, 1), counts
+
+
+@pytest.mark.cuda
+def test_degenerate_interval_input_on_the_card(cuda_device):
+    """The input of ``tests/test_torch_degenerate.py`` (a byte that narrows
+    to an empty interval at (8,20,22), delta 255): K1 -> K2 on the card give
+    the CPU path's archive, K3 decodes its stream as its plain version does,
+    and decode raises on the crc as on the CPU."""
+    from redux_tpu_torch import api, container, testdata
+    from redux_tpu_torch.errors import InvalidInputError
+    from redux_tpu_torch.ops.coder import bytes_to_words
+    from redux_tpu_torch.ops.decode import decode_blocks, decode_blocks_plain
+
+    data = testdata.text_like(7186, 1) + bytes([111, 100, 116, 0])
+    kw = {"block_size": 8192, "delta": 255, "use_prior": False}
+    arch = api.encode(data, device=cuda_device, **kw)
+    assert arch == api.encode(data, device="cpu", **kw)
+    with pytest.raises(InvalidInputError):
+        api.decode(arch, device=cuda_device)
+    _, streams = container.parse_archive(arch)
+    staged = torch.zeros(1, 4 * (len(streams[0]) // 4 + 3), dtype=torch.uint8)
+    staged[0, : len(streams[0])] = torch.frombuffer(bytearray(streams[0]), dtype=torch.uint8)
+    words = bytes_to_words(staged)
+    args = (torch.tensor([len(data)], dtype=torch.int32), torch.arange(258, dtype=torch.int32),
+            api.Parameters.tpu_wide(), 8192, 255)
+    on_card = decode_blocks(words.to(cuda_device), *(a.to(cuda_device) if torch.is_tensor(a)
+                                                      else a for a in args))
+    assert torch.equal(on_card.cpu(), decode_blocks_plain(words, *args))

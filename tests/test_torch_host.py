@@ -192,12 +192,22 @@ def test_port_imports_neither_jax_nor_reference():
     for path in [*sorted((ROOT / "redux_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
         for no, line in enumerate(path.read_text().splitlines(), 1):
             assert not pattern.match(line), f"{path.name}:{no}: {line}"
+    # Every module of the port, then the CLI as ``python -m`` runs it (runpy;
+    # no mode flag: usage and exit 1).
+    modules = sorted(
+        ".".join(("redux_tpu_torch", *p.relative_to(ROOT / "redux_tpu_torch").with_suffix("").parts))
+        .removesuffix(".__init__")
+        for p in (ROOT / "redux_tpu_torch").rglob("*.py"))
     code = (
-        "import sys; import redux_tpu_torch, redux_tpu_torch.parallel, redux_tpu_torch.ops.encode_m, "
-        "redux_tpu_torch.cuda_checks, redux_tpu_torch.parallel.mesh; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'redux_tpu')]; "
+        f"import importlib, runpy, sys\nfor m in {modules!r}: importlib.import_module(m)\n"
+        "sys.argv = ['redux_tpu_torch.cli']\n"
+        "try: runpy.run_module('redux_tpu_torch.cli', run_name='__main__')\n"
+        "except SystemExit as e: assert e.code == 1, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'redux_tpu')]\n"
         "assert not bad, bad"
     )
+    assert {"redux_tpu_torch.cli", "redux_tpu_torch.native", "redux_tpu_torch.oracle",
+            "redux_tpu_torch.bitio", "redux_tpu_torch.models.fenwick"} <= set(modules)
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
     assert set(redux_tpu_torch.launch_counts()) == {
         "model_values", "encode", "decode", "encode_fused", "encode_m"}
