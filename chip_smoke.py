@@ -17,7 +17,12 @@ CLI at its defaults ((8,30,32), K1 -> K2 and K3 in their u64
 instantiations) over the same 64 MiB through files, those kernels against
 their plain versions at the main shape, ``api.encode_auto`` ->
 ``decode_auto`` at 64 MiB and at 256 KiB (the compact range), and the
-native serial codec through ``--format redux``.  Phases print one line each; the line
+native serial codec through ``--format redux``.  Phase 9 runs the device
+bench (``redux_tpu_torch.bench``) on the same 64 MiB, the generic-model
+coders at 256 x 4096 of it against K1 + the reference-format coder, K3 and
+the oracle, and the multi-host workers (``parallel.multihost``, two
+processes over gloo, then the scaling worker at 1 and 2 processes; NCCL
+too with two cards or more).  Phases print one line each; the line
 before the last is the kernels' JSON summary (each kernel's time at the
 main shapes beside its bound, ``cuda_checks.kernel_bounds``; no single
 PyTorch call computes any of them, so ``library_ms`` is null) and the
@@ -224,6 +229,87 @@ def phase8(dev, data, native_build_s, small_bytes=256 << 10, redux_bytes=1 << 20
         shutil.rmtree(work, ignore_errors=True)
 
 
+def phase9(dev, data, arch, generic_blocks=256, worker_bytes=32 << 20, worker_timeout=300):
+    """Phase 9: the bench, the generic models and multi-host.
+
+    (a) ``bench.run_device_benchmark`` on ``data`` (phase 5's input), its
+    dict on one JSON line: verified, and its ratio that of phase 5's
+    archive ``arch``; (b) ``cuda_checks.check_generic`` over the first
+    ``generic_blocks`` blocks of 4096 of ``data``, with its wall clock and
+    launches; (c) two multi-host workers over gloo on the visible card(s),
+    then the scaling worker at N = 1 and N = 2, ``worker_bytes`` a process;
+    with two cards or more, the same over NCCL, one card a rank.  Any
+    worker that fails or times out fails the phase."""
+    import redux_tpu_torch
+    from redux_tpu_torch import bench, cuda_checks
+
+    t_phase = time.perf_counter()
+    # (a) The bench at the shipped defaults, device-resident.
+    res = bench.run_device_benchmark(data, device=dev)
+    print("bench " + json.dumps(res))
+    if not res["verified"]:
+        raise AssertionError("bench: round trip not verified")
+    if res["ratio"] != len(data) / len(arch):
+        raise AssertionError(f"bench: ratio {res['ratio']} is not phase 5's archive's")
+
+    # (b) The generic models on the card.
+    redux_tpu_torch.reset_launch_counts()
+    t0 = time.perf_counter()
+    g = cuda_checks.check_generic(dev, data, n_blocks=generic_blocks)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    counts = redux_tpu_torch.launch_counts()
+    if counts["model_values"] < 1 or counts["decode"] < 1:
+        raise AssertionError(f"generic: launches {counts}")
+    print(f"generic {g['blocks']} x {g['k']}: dense streams ({g['stream_bytes']} bytes) equal "
+          f"K1 + coder.encode_blocks; K3 and decode_blocks_generic give back the input; static "
+          f"and two-speed models equal the oracle on {g['oracle_blocks']} blocks; {dt:.3f} s wall "
+          f"clock, launches {json.dumps(counts)}; steps s "
+          + json.dumps({k: round(v, 4) for k, v in g["seconds"].items()}))
+
+    # (c) Multi-host: worker processes on this machine's card(s).
+    phase9_multihost(dev, worker_bytes, worker_timeout)
+    print(f"phase 9: {time.perf_counter() - t_phase:.3f} s wall clock")
+
+
+def phase9_multihost(dev, worker_bytes=32 << 20, worker_timeout=300, sizes=(1, 2)):
+    """Phase 9 (c): two multi-host workers over gloo on the visible card(s),
+    then the scaling worker at each process count of ``sizes``,
+    ``worker_bytes`` a process; with two cards or more the same over NCCL,
+    one card a rank.  Efficiency is ``t(1) / t(N)`` of encode plus decode at
+    fixed bytes a process.  Any worker that fails or times out fails the
+    phase."""
+    from redux_tpu_torch.parallel import multihost
+
+    n_cards = torch.cuda.device_count()
+    for backend in ["gloo"] + (["nccl"] if n_cards >= 2 else []):
+        args = ["--device", dev.type, "--backend", backend]
+        t0 = time.perf_counter()
+        outs = multihost.run_local(2, args, worker_timeout)
+        for rank, out in enumerate(outs):
+            if f"MULTIHOST OK p{rank}/2" not in out:
+                raise AssertionError(f"multihost[{backend}] rank {rank}: {out!r}")
+            print(f"multihost[{backend}] {out.strip()}")
+        print(f"multihost[{backend}]: {time.perf_counter() - t0:.3f} s wall clock with process "
+              "start")
+        scaling = {}
+        for n in sizes:
+            outs = multihost.run_local(
+                n, args + ["--scaling", "--bytes-per-host", str(worker_bytes)], worker_timeout)
+            rows = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+            if not all(r["verified"] for r in rows):
+                raise AssertionError(f"scaling[{backend}] N={n}: not verified: {rows}")
+            scaling[n] = rows[0]  # the barriers make every process read the slowest's time
+        t1 = scaling[1]["t_enc"] + scaling[1]["t_dec"]
+        for n, r in scaling.items():
+            shared = n > max(n_cards, 1)
+            where = (f"{n} processes share {n_cards} card(s), so this is not scaling evidence"
+                     if shared else f"one card a process ({n_cards} cards)")
+            print(f"scaling[{backend}] N={n}, {worker_bytes} bytes a process: t_enc "
+                  f"{r['t_enc']:.6f} s, t_dec {r['t_dec']:.6f} s, verified, efficiency "
+                  f"{t1 / (r['t_enc'] + r['t_dec']):.4f} ({where})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -335,6 +421,9 @@ def main() -> int:
 
     # Phase 8: the CLI, the auto and compact routes and the native codec.
     phase8(dev, data, native_build_s)
+
+    # Phase 9: the bench, the generic models and multi-host.
+    phase9(dev, data, arch)
 
     kernels = []
     for k, (source, replaces) in cuda_checks.KERNELS.items():

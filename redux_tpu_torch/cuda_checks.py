@@ -1,5 +1,7 @@
 """On-card checks of the kernels: each against its plain PyTorch version,
-and the port against the golden archives.
+the port against the golden archives, and the generic-model coders
+against K1, K3 and the oracle (:func:`check_generic`, which also runs on
+CPU tensors).
 
 Used by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.  Every check
 compares integers exactly (tolerance 0: the bar is byte equality) and
@@ -11,16 +13,23 @@ from __future__ import annotations
 import hashlib
 import json
 import pathlib
+import time
 
+import numpy as np
 import torch
 
-from . import api, native
+from . import api, native, oracle
 from .convert import init_cum_from_numpy
+from .models.base import Model
+from .ops import coder
+from .ops.bitpack import streams_to_words, words_to_streams
 from .ops.decode import decode_blocks, decode_blocks_plain
 from .ops.encode import (encode_blocks, encode_blocks_fused, encode_blocks_fused_plain,
                          encode_blocks_plain)
 from .ops.encode_m import encode_blocks_m, encode_blocks_m_plain
-from .ops.model import model_lohi, model_lohi_plain
+from .ops.generic import (TorchModel, decode_blocks_generic, dense_torch_model,
+                          encode_blocks_generic, make_generic_coders, static_torch_model)
+from .ops.model import model_lohi, model_lohi_plain, precompute_encode_model
 from .params import Parameters
 from .testdata import golden_input, incompressible, text_like
 
@@ -323,3 +332,148 @@ def check_goldens(device: torch.device, golden_dir: pathlib.Path) -> list:
         _require(back == data, f"{entry['file']}: decode differs")
         results.append((entry["file"], fmt, len(data), len(stored)))
     return results
+
+
+# -- generic models (chip_smoke.py phase 9 (b)) -------------------------------
+#
+# Two user rules the archive's kernels cannot express, each as a TorchModel
+# and as a host twin for the oracle (the reference's
+# tests/test_generic_model.py:61-109, 142-150, 184-192).
+
+
+class CumHostModel(Model):
+    """Host twin: a cumulative-row model with a pluggable increment and the
+    freeze at ``freq_max``, in Python integers."""
+
+    def __init__(self, params: Parameters, cum):
+        self.params = params
+        self.cum = [int(c) for c in cum]
+
+    def _inc(self, symbol: int) -> int:
+        raise NotImplementedError
+
+    def _update(self, symbol: int) -> None:
+        if self.total_frequency() < self.params.freq_max:
+            d = self._inc(symbol)
+            for i in range(symbol + 1, len(self.cum)):
+                self.cum[i] += d
+
+    def total_frequency(self) -> int:
+        return self.cum[self.params.symbol_count]
+
+    def get_frequency(self, symbol):
+        res = (self.cum[symbol], self.cum[symbol + 1])
+        self._update(symbol)
+        return res
+
+    def get_symbol(self, value):
+        for i in range(len(self.cum) - 1):
+            if value < self.cum[i + 1]:
+                res = (i, self.cum[i], self.cum[i + 1])
+                self._update(i)
+                return res
+        raise AssertionError("value out of range")
+
+    def get_freq_table(self):
+        return [(self.cum[i], self.cum[i + 1]) for i in range(self.params.symbol_count)]
+
+
+class StaticHost(CumHostModel):
+    """Host twin of :func:`redux_tpu_torch.ops.generic.static_torch_model`."""
+
+    def _update(self, symbol):
+        pass
+
+
+class TwoSpeedHost(CumHostModel):
+    """Per-symbol adaptation speed: +4 for bytes below 128, +1 otherwise."""
+
+    def _inc(self, symbol):
+        return 4 if symbol < 128 else 1
+
+
+def two_speed_torch_model(params: Parameters, init_cum) -> TorchModel:
+    """:class:`TwoSpeedHost`'s rule as a :class:`TorchModel`: the dense
+    model's lookups with a per-lane increment."""
+    base = dense_torch_model(params, init_cum, delta=4)  # the sentinel covers +4
+    s, freq_max = params.symbol_count, params.freq_max
+
+    def update(cum, sym, active):
+        upd = active & (cum[:, s] < freq_max)
+        inc = torch.where(sym < 128, 4, 1)
+        above = torch.arange(s + 1, device=cum.device)[None, :] > sym[:, None]
+        return cum + (above & upd[:, None]) * inc[:, None]
+
+    return base._replace(update=update)
+
+
+def skewed_cum(params: Parameters) -> np.ndarray:
+    """A non-uniform static distribution (ASCII-heavy), total within ``freq_max``."""
+    freqs = np.ones(params.symbol_count, dtype=np.int64)
+    freqs[32:127] = 40
+    freqs[ord("a") : ord("z") + 1] = 200
+    cum = np.zeros(params.symbol_count + 1, dtype=np.int64)
+    np.cumsum(freqs, out=cum[1:])
+    return cum
+
+
+def check_generic(device: torch.device, data: bytes, n_blocks: int = 256, k: int = K,
+                  n_oracle: int = 4) -> dict:
+    """Phase 9 (b): the generic-model coders on ``device`` over the first
+    ``n_blocks`` blocks of ``k`` bytes of ``data`` (tpu_wide, delta 16, the
+    slice's prior).
+
+    The dense model's reference-format streams must equal K1's values
+    (:func:`~redux_tpu_torch.ops.model.precompute_encode_model`) through
+    :func:`redux_tpu_torch.ops.coder.encode_blocks`; K3 and
+    :func:`~redux_tpu_torch.ops.generic.decode_blocks_generic` must both
+    give back the input.  On the first ``n_oracle`` blocks the static and
+    the two-speed models must give the oracle's streams, and the generic
+    decoder must decode the oracle's.  Returns the stream bytes and the
+    wall seconds of each step (device synchronised).
+    """
+    params, delta = Parameters.tpu_wide(), 16
+    x = KernelInputs(data[: n_blocks * k], params, delta, k, device)
+    # Room for any model: a count up to twice freq_max costs 23 bits a symbol at most.
+    n_words = coder.max_block_words(2 * params.freq_max, params.symbol_count, params, k)
+    dense = dense_torch_model(params, x.init_cum, delta)
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    gw, gl = timed("generic_encode", lambda: encode_blocks_generic(x.syms, x.lens, dense, params,
+                                                                   n_words))
+    sw, sl = timed("k1_coder_encode", lambda: coder.encode_blocks(
+        *precompute_encode_model(x.syms, x.lens, x.init_cum, params, delta), x.lens, params,
+        n_words))
+    _require(torch.equal(gl, sl) and torch.equal(gw, sw),
+             "generic dense streams differ from K1 + coder.encode_blocks")
+    back = timed("k3_decode", lambda: decode_blocks(gw, x.lens, x.init_cum, params, k, delta))
+    _require(torch.equal(back, x.syms), "K3 does not decode the generic dense streams")
+    back = timed("generic_decode", lambda: decode_blocks_generic(gw, x.lens, dense, params, k))
+    _require(torch.equal(back.to(torch.uint8), x.syms),
+             "decode_blocks_generic does not decode the generic dense streams")
+
+    blocks = [data[i * k : (i + 1) * k] for i in range(min(n_oracle, x.syms.shape[0]))]
+    syms, lens = x.syms[: len(blocks)], x.lens[: len(blocks)]
+    cum, ic = skewed_cum(params), x.init_cum.cpu().numpy()
+    for name, model, host in (
+            ("static", static_torch_model(params, cum), lambda: StaticHost(params, cum)),
+            ("two_speed", two_speed_torch_model(params, ic), lambda: TwoSpeedHost(params, ic))):
+        enc, dec = make_generic_coders(model, params)
+        words, byte_lens = timed(f"{name}_encode", lambda: enc(syms, lens, n_words))
+        streams = words_to_streams(words.cpu().numpy().view(np.uint32), byte_lens.cpu().tolist())
+        refs = [oracle.compress_bytes(b, host()) for b in blocks]
+        _require(streams == refs, f"{name} model: generic streams differ from the oracle's")
+        ref_words = torch.from_numpy(streams_to_words(refs, n_words).view(np.int32)).to(device)
+        back = timed(f"{name}_decode", lambda: dec(ref_words, lens, k))
+        _require(torch.equal(back.to(torch.uint8), syms),
+                 f"{name} model: the generic decoder does not decode the oracle's streams")
+    return {"blocks": x.syms.shape[0], "k": k, "stream_bytes": int(gl.sum()),
+            "oracle_blocks": len(blocks), "seconds": secs}

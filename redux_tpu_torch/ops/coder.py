@@ -11,6 +11,11 @@ count-leading-zeros; :func:`bit_length` emulates it exactly for values
 below 2**53.  :class:`PlainCoder` is the coder step and emission of every
 plain encoder (K2, K4 and K5), as ``csrc/common.cuh::Coder`` is the
 kernels'.
+
+:func:`encode_blocks` is the reference's batched coder of reference-format
+streams (``redux_tpu/ops/coder.py::encode_blocks``, :84-274): plain
+PyTorch on the tensors' device, which the generic models of
+:mod:`redux_tpu_torch.ops.generic` feed.
 """
 
 from __future__ import annotations
@@ -220,3 +225,87 @@ class PlainCoder:
         words = self.words[:, :n_words]
         words = words - ((words >> 31) << 32)  # u32 bit patterns into int32 range
         return words.to(torch.int32), byte_lens.to(torch.int32), self.ovf
+
+
+def _put_piece(coder: PlainCoder, lead, run, rest, rl, on) -> None:
+    """Append ``[lead][run bits opposite to lead][the rl low bits of rest]``
+    to the blocks where ``on``: the reference's ``put_bit`` with its
+    pending run (codec.rs:39-46).  ``run`` may be any length; ``rl <= 31``."""
+    zero = torch.zeros_like(lead)
+    coder._put(torch.where(on, lead, zero), on.to(torch.int64))
+    left = torch.where(on, run, zero)
+    opp = lead == 0
+    while bool((left > 0).any()):
+        m = left.clamp(max=32)
+        coder._put(torch.where(opp, mask(m), zero), m)
+        left = left - m
+    coder._put(torch.where(on, rest, zero), torch.where(on, rl, zero))
+
+
+def encode_blocks(lo: torch.Tensor, hi: torch.Tensor, tot: torch.Tensor, eof_lo: torch.Tensor,
+                  eof_hi: torch.Tensor, eof_tot: torch.Tensor, lens: torch.Tensor,
+                  params: Parameters, n_words: int):
+    """Code ``B`` blocks into reference-format streams from their model values.
+
+    Counterpart: ``redux_tpu/ops/coder.py::encode_blocks`` (:84-274).  Per
+    block: the data symbols, then the EOF symbol at position ``lens``, then
+    the ``code_bits`` drain and zero padding to a byte (codec.rs:91-99,
+    the reference's :200-242).  This is not the v2 format of the archives:
+    K2, the v2 coder, is :func:`redux_tpu_torch.ops.encode.encode_blocks`.
+    The reference's ``encode_blocks_fast`` (:584) is a TPU plan of this
+    same function and stream format and has no port of its own.  Its
+    ``decode_blocks`` (:278) is K3 (:func:`redux_tpu_torch.ops.decode.decode_blocks`),
+    which stops at ``lens`` and so decodes these streams of the dense
+    model too.
+
+    Args: ``(B, K)`` integer ``lo``/``hi``/``tot`` (the model's bounds and
+    total at each data position), the ``(B,)`` EOF triple, ``(B,)`` ``lens
+    <= K`` (negative: no stream) and the capacity ``n_words``, which must
+    hold every stream (:func:`max_block_words`).  Plain PyTorch on the
+    tensors' device, one step a position, in int64 with 32-bit masks:
+    products ``range * bound`` reach ``2**62`` at (8,30,32).
+
+    Returns ``(words (B, n_words) int32, byte_lens (B,) int32)``: each
+    block's big-endian stream (u32 bit patterns) and its length in bytes.
+    """
+    check_code_bits(params)
+    b, k = lo.shape
+    cb = params.code_bits
+    i64 = torch.int64
+    lens64 = lens.to(i64)
+    # One column past K: the EOF step of a full block reads no data values.
+    lo, hi = (torch.nn.functional.pad(x.to(i64), (0, 1)) for x in (lo, hi))
+    tot = torch.nn.functional.pad(tot.to(i64), (0, 1), value=1)
+    eof_lo, eof_hi, eof_tot = (x.to(i64) for x in (eof_lo, eof_hi, eof_tot))
+    coder = PlainCoder(lens, params, n_words)
+    eof_steps = set(lens.tolist())  # the drain runs only where some block ends
+    t_end = min(max(eof_steps), k) if b else -1
+    for t in range(t_end + 1):
+        is_eof = t == lens64
+        active = t <= lens64
+        flo = torch.where(is_eof, eof_lo, lo[:, t])
+        fhi = torch.where(is_eof, eof_hi, hi[:, t])
+        count = torch.where(active, torch.where(is_eof, eof_tot, tot[:, t]), 1)
+        low, high = coder.low, coder.high
+        rng = high - low + 1
+        high = torch.where(active, low + rng * fhi // count - 1, high)
+        low = torch.where(active, low + rng * flo // count, low)
+        low2, high2, n1, n3 = renorm_plain(low, high, cb, active)
+        # The n1 E1/E2 bits: [b1][pending x !b1][n1 - 1 bits] (codec.rs:62-89).
+        emit = active & (n1 > 0)
+        rl = (n1 - 1).clamp(min=0)
+        prefix = low >> (cb - n1)
+        _put_piece(coder, prefix >> rl, coder.pending, prefix & mask(rl), rl, emit)
+        pending = torch.where(emit, 0, coder.pending) + n3
+        if t in eof_steps:
+            # After EOF: drain the code_bits - (n1 + n3) top bits of low.
+            ndr = torch.where(is_eof, cb - n1 - n3, 0).clamp(min=0)
+            drain = ndr > 0
+            dl = (ndr - 1).clamp(min=0)
+            dprefix = low2 >> (cb - ndr)
+            _put_piece(coder, dprefix >> dl, pending, dprefix & mask(dl), dl, drain)
+            pending = torch.where(drain, 0, pending)
+        coder.pending = pending
+        coder.low, coder.high = low2, high2
+    words, byte_lens, _ = coder.finish()
+    return words, byte_lens

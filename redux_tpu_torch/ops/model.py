@@ -6,6 +6,9 @@ position ``t``, ``lo = cdf_t[v]`` and ``hi = cdf_t[v+1]`` with
 ``v = syms[b, t]``, read before the position's own update; the update
 ``cdf[i] += delta`` for ``i > v`` runs while ``t < lens[b]`` and
 ``t < tfreeze``.  Kernel: ``csrc/model_values.cu``.
+
+:func:`precompute_encode_model` puts K1's planes into the reference's
+six-tuple for the reference-format coder (``ops.coder.encode_blocks``).
 """
 
 from __future__ import annotations
@@ -70,3 +73,37 @@ def model_lohi(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
     _build.check(err, "rxt_model_lohi")
     launches += 1
     return lo, hi
+
+
+def precompute_encode_model(symbols: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
+                            params: Parameters, delta: int = 1):
+    """Per-position model values in the reference's layout, for
+    :func:`redux_tpu_torch.ops.coder.encode_blocks`.
+
+    Counterpart: ``redux_tpu/ops/ranks.py::precompute_encode_model``
+    (:171-229).  Returns ``(lo, hi, tot, eof_lo, eof_hi, eof_tot)``, int32:
+    ``(B, K)`` values at each data position (``lo``/``hi`` past ``lens``
+    are don't-care) and the ``(B,)`` triple of the EOF symbol coded at
+    position ``lens``.  ``lo``/``hi`` come from :func:`model_lohi` (K1 on a
+    CUDA tensor, its plain version on a CPU tensor); ``tot`` and the EOF
+    triple are the reference's closed forms (:216-228): every data symbol
+    sorts below EOF, so EOF's bounds move only by the update count.
+    ``symbols`` may be any integer dtype with values below 256.
+    """
+    syms = symbols.to(torch.uint8).contiguous()
+    lens = lens.to(torch.int32).contiguous()
+    lo, hi = model_lohi(syms, lens, init_cum, params, delta)
+    n = params.symbol_count
+    row = init_cum.to(torch.int64)
+    init_total = row[n]
+    # Updates stop at the first t with total >= freq_max (the reference's
+    # t_freeze, not clamped: a row at or past freq_max never updates).
+    t_freeze = torch.div(params.freq_max - init_total + (delta - 1), delta, rounding_mode="floor")
+    lens64 = lens.to(torch.int64)
+    t_idx = torch.arange(syms.shape[1], device=syms.device)[None, :]
+    n_upd_t = torch.minimum(torch.minimum(t_idx, lens64[:, None]), t_freeze)
+    tot = (init_total + delta * n_upd_t).to(torch.int32)
+    n_upd = torch.minimum(lens64, t_freeze).clamp(min=0)  # updates before EOF
+    eof_lo = (row[n - 1] + delta * n_upd).to(torch.int32)
+    eof_hi = (row[n] + delta * n_upd).to(torch.int32)
+    return lo, hi, tot, eof_lo, eof_hi, eof_hi.clone()

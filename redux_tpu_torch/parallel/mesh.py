@@ -1,7 +1,8 @@
 """Data parallelism over devices: the blocks (lanes) split across them.
 
 Counterpart: ``redux_tpu/parallel/mesh.py`` — ``data_parallel_mesh``
-(:34-39), ``pad_to_devices`` (:42-45), ``pallas_lane_quantum`` (:127-144)
+(:34-39), ``pad_to_devices`` (:42-45), ``encode_blocks_sharded`` (:74-80),
+``initialize_multihost`` (:100-111), ``pallas_lane_quantum`` (:127-144)
 and the sharded kernel entries ``encode_blocks_pallas_m_sharded``
 (:167-196), ``decode_blocks_pallas_sharded`` (:221-248) and
 ``encode_blocks_ranked_sharded`` (:270-295).
@@ -21,9 +22,10 @@ import contextlib
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..ops.decode import decode_blocks
-from ..ops.encode import encode_blocks_ranked
+from ..ops.encode import encode_blocks, encode_blocks_ranked
 from ..ops.encode_m import encode_blocks_m
 from ..params import Parameters
 
@@ -88,6 +90,38 @@ def _sharded(fn: Callable, mesh: Mesh, lanes: Sequence[tuple], replicated: Seque
     gathered = tuple(torch.cat([r[j].to(home) for r in results])[:b]
                      for j in range(len(results[0])))
     return gathered if len(gathered) > 1 else gathered[0]
+
+
+def encode_blocks_sharded(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor,
+                          init_total: int, params: Parameters, n_words: int, mesh: Mesh,
+                          delta: int = 1):
+    """Sharded K2 over given model values: the counterpart of the
+    reference's ``encode_blocks_sharded`` (:74-80), which shards its XLA v2
+    coder over ``(lo, hi, tot)``.  K2 computes that ``tot`` plane in closed
+    form (``redux_tpu/ops/ranks.py:216-218``) from ``init_total`` and
+    ``delta``, so it takes no plane.  Contract of
+    :func:`redux_tpu_torch.ops.encode.encode_blocks`; any lane count."""
+    return _sharded(
+        lambda lo_s, hi_s, lens_s: encode_blocks(lo_s, hi_s, lens_s, init_total, params,
+                                                 n_words, delta),
+        mesh, [(lo, 0), (hi, 0), (lens, -1)], [])
+
+
+def initialize_multihost(coordinator: str, world_size: int, rank: int, backend: str) -> None:
+    """Join the process group of a multi-host job: the counterpart of the
+    reference's ``initialize_multihost`` (:100-111), on
+    ``torch.distributed``.
+
+    ``coordinator`` is ``host:port`` of rank 0; ``backend`` is ``"gloo"``
+    or ``"nccl"``, never chosen here.  A no-op when the group exists.  A
+    failed rendezvous raises (the reference swallows every RuntimeError,
+    which hides that too).  Each process then shards its own blocks over
+    its local devices; the blocks need no collective until the gather.
+    """
+    if dist.is_initialized():
+        return
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=world_size, rank=rank)
 
 
 def encode_blocks_ranked_sharded(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,

@@ -263,3 +263,49 @@ def test_degenerate_interval_input_on_the_card(cuda_device):
     on_card = decode_blocks(words.to(cuda_device), *(a.to(cuda_device) if torch.is_tensor(a)
                                                       else a for a in args))
     assert torch.equal(on_card.cpu(), decode_blocks_plain(words, *args))
+
+
+@pytest.mark.cuda
+def test_bench_on_the_card(cuda_device):
+    """Phase 9 (a) at 4 MiB: the bench verifies, its ratio is the archive's,
+    and it names the kernels that launched and each one's bound."""
+    from redux_tpu_torch import api, bench, testdata
+
+    data = testdata.mixed(4 << 20, 14)
+    res = bench.run_device_benchmark(data, iters=3, device=cuda_device)
+    assert res["verified"] is True
+    assert res["ratio"] == len(data) / len(api.encode(data, device=cuda_device))
+    assert res["kernels"] == ["model_values", "encode", "decode"]
+    assert set(res["roofline"]) == {"model_values", "encode", "decode"}
+    assert all(r["ms"] > 0 and r["bound_ms"] > 0 for r in res["roofline"].values())
+    assert res["h2d_pinned_gbps"] > 0 and res["h2d_pageable_gbps"] > 0
+
+
+@pytest.mark.cuda
+def test_generic_models_on_the_card(cuda_device):
+    """Phase 9 (b) at 32 x 4096: the dense model's streams equal K1 + the
+    reference-format coder, K3 and the generic decoder give back the input,
+    and the static and two-speed models equal the oracle on 2 blocks."""
+    import redux_tpu_torch
+    from redux_tpu_torch import cuda_checks, testdata
+
+    redux_tpu_torch.reset_launch_counts()
+    res = cuda_checks.check_generic(cuda_device, testdata.mixed(32 * 4096, 15), n_blocks=32,
+                                    n_oracle=2)
+    counts = redux_tpu_torch.launch_counts()
+    assert res["blocks"] == 32 and counts["model_values"] >= 1 and counts["decode"] >= 1, counts
+
+
+@pytest.mark.cuda
+def test_multihost_workers_on_the_card(cuda_device):
+    """Phase 9 (c) at a small size: two workers over gloo on the card(s)
+    round-trip, and the scaling worker at N = 2 verifies."""
+    import json
+
+    from redux_tpu_torch.parallel import multihost
+
+    args = ["--device", "cuda", "--backend", "gloo"]
+    outs = multihost.run_local(2, args, 300)
+    assert all(f"MULTIHOST OK p{r}/2" in out for r, out in enumerate(outs)), outs
+    outs = multihost.run_local(2, args + ["--scaling", "--bytes-per-host", str(1 << 20)], 300)
+    assert all(json.loads(o.strip().splitlines()[-1])["verified"] for o in outs), outs
