@@ -34,7 +34,7 @@ change ``encode_auto``'s candidates, and so its bytes, silently.
 from __future__ import annotations
 
 import time
-from typing import Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -282,6 +282,46 @@ def encode(
     return out
 
 
+class _Lanes(NamedTuple):
+    """The decoder's lanes of an archive, one a block."""
+
+    raw: np.ndarray  # (B,) bool: stored raw, no symbols to decode
+    block_lens: np.ndarray  # (B,) int32 symbols a block
+    coded_lens: np.ndarray  # (B,) int64 coded stream bytes, 0 for a raw block
+    order: np.ndarray  # lanes sorted by coded length (the reference's order)
+
+
+def _decode_lanes(header) -> _Lanes:
+    """Which blocks of ``header`` are coded, their stream lengths and the
+    order K3 takes them in; InvalidInputError where a raw block's stored
+    length is not its block length."""
+    block_lens = np.asarray(header.block_lens, dtype=np.int32)
+    raw = (np.asarray(header.block_raw, dtype=bool) if header.block_raw
+           else np.zeros(header.n_blocks, dtype=bool))
+    stream_lens = np.asarray(header.block_byte_lens, dtype=np.int64)
+    if (stream_lens[raw] != block_lens[raw]).any():
+        raise InvalidInputError()
+    coded_lens = np.where(raw, 0, stream_lens)
+    return _Lanes(raw, block_lens, coded_lens, np.argsort(coded_lens, kind="stable"))
+
+
+def _stage_lanes(arch_u8: np.ndarray, header, lanes: _Lanes, sel: np.ndarray,
+                 device: torch.device):
+    """K3's input for the lanes ``sel`` of the archive ``arch_u8``: their
+    streams as a ``(len(sel), wcap)`` word matrix on ``device``, zero past
+    each stream and for two words past the longest (reads past a stream's
+    terminator see zero bits; the kernel also bounds-checks its row), and
+    their symbol counts, 0 for a raw block."""
+    n_words = _static_words(header.params, header.block_size, header.delta)
+    lens_o = lanes.coded_lens[sel]
+    wcap = min(max(4, -(-int(lens_o.max(initial=0)) // 4) + 2), n_words + 2)
+    cat = _gather_slices(arch_u8, header.stream_offs[sel], lens_o)
+    byts = np.zeros((len(sel), wcap * 4), dtype=np.uint8)
+    byts[np.arange(wcap * 4, dtype=np.int32)[None, :] < lens_o[:, None]] = cat
+    klens = np.where(lanes.raw[sel], 0, lanes.block_lens[sel]).astype(np.int32)
+    return bytes_to_words(torch.from_numpy(byts).to(device)), torch.from_numpy(klens).to(device)
+
+
 def decode(archive: bytes, *, device: Devices = "cuda",
            _timings: Optional[dict] = None) -> bytes:
     """Decompress an RXT archive.
@@ -301,23 +341,9 @@ def decode(archive: bytes, *, device: Devices = "cuda",
         return b""
     ic = _init_cum(params, header.prior_extra)
     n_blocks = header.n_blocks
-    block_lens = np.asarray(header.block_lens, dtype=np.int32)
-    raw_v = (
-        np.asarray(header.block_raw, dtype=bool)
-        if header.block_raw
-        else np.zeros(n_blocks, dtype=bool)
-    )
     k = header.block_size
-    n_words = _static_words(params, k, header.delta)
     arch_u8 = np.frombuffer(archive, dtype=np.uint8)
-    stream_offs = header.stream_offs
-    stream_lens = np.asarray(header.block_byte_lens, dtype=np.int64)
-    if (stream_lens[raw_v] != block_lens[raw_v]).any():
-        raise InvalidInputError()
-    coded_lens = np.where(raw_v, 0, stream_lens)
-    sym_lens = np.where(raw_v, 0, block_lens)
-    # Lanes sorted by coded length (the reference's order; inverted below).
-    order = np.argsort(coded_lens, kind="stable")
+    lanes = _decode_lanes(header)
     ic_t = init_cum_from_numpy(ic, params, device)
     clock.mark("parse")
 
@@ -325,20 +351,11 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     syms_u8 = np.empty((n_blocks, k), dtype=np.uint8)
     for s0 in range(0, n_blocks, chunk):
         s1 = min(s0 + chunk, n_blocks)
-        sel = order[s0:s1]
-        coded_max = int(coded_lens[sel].max(initial=0))
-        if coded_max == 0:  # all-raw slab: no kernel work
+        sel = lanes.order[s0:s1]
+        if lanes.coded_lens[sel].max(initial=0) == 0:  # all-raw slab: no kernel work
             syms_u8[s0:s1] = 0
             continue
-        # Two zero words past the longest stream: reads past a stream's
-        # terminator see zero bits (the kernel also bounds-checks its row).
-        wcap = min(max(4, -(-coded_max // 4) + 2), n_words + 2)
-        lens_o = coded_lens[sel]
-        cat = _gather_slices(arch_u8, stream_offs[sel], lens_o)
-        byts = np.zeros((s1 - s0, wcap * 4), dtype=np.uint8)
-        byts[np.arange(wcap * 4, dtype=np.int32)[None, :] < lens_o[:, None]] = cat
-        words = bytes_to_words(torch.from_numpy(byts).to(device))
-        klens = torch.from_numpy(sym_lens[sel].astype(np.int32)).to(device)
+        words, klens = _stage_lanes(arch_u8, header, lanes, sel, device)
         if mesh is None:
             out = decode_blocks(words, klens, ic_t, params, k, header.delta)
         else:
@@ -347,12 +364,12 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     clock.mark("stage+kernel+fetch")
 
     inv = np.empty(n_blocks, dtype=np.int64)
-    inv[order] = np.arange(n_blocks)
+    inv[lanes.order] = np.arange(n_blocks)
     flat = syms_u8[inv]  # back in block order
-    if raw_v.any():
-        ri = np.flatnonzero(raw_v)
-        rlens = block_lens[ri].astype(np.int64)
-        cat = _gather_slices(arch_u8, stream_offs[ri], rlens)
+    if lanes.raw.any():
+        ri = np.flatnonzero(lanes.raw)
+        rlens = lanes.block_lens[ri].astype(np.int64)
+        cat = _gather_slices(arch_u8, header.stream_offs[ri], rlens)
         rows = np.zeros((ri.size, k), dtype=np.uint8)
         rows[np.arange(k, dtype=np.int32)[None, :] < rlens[:, None]] = cat
         flat[ri] = rows

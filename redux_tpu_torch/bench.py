@@ -6,10 +6,10 @@ delta 16, the warm-start prior and the auto block size; the blocks and the
 compressed words resident on the device; encode through
 ``ops.encode.encode_blocks_ranked`` (K1 -> K2, or K4 under
 ``REDUX_TPU_ENC_FUSED``); decode through K3 on the ``(B, W)`` word matrix
-staged as ``api.decode`` stages it (blocks stored raw get no symbols,
-lanes sorted by coded length, two zero words past the longest stream); the
-round trip verified on the host on every run; ``api.encode`` / ``decode``
-wall times after one warm-up.
+that ``api.decode`` stages from the archive (``api._stage_lanes``, all
+lanes in one launch); the round trip verified on the host on every run,
+with the timed encode's streams equal to the archive's; ``api.encode`` /
+``decode`` wall times after one warm-up.
 
 Kernel stages are timed with CUDA events around each iteration (median of
 ``iters``, every iteration's time kept as the spread).  The reference's
@@ -34,7 +34,6 @@ host instead (the reference's ``bench.py --baseline``).
 from __future__ import annotations
 
 import json
-import sys
 import time
 from typing import Optional
 
@@ -42,6 +41,7 @@ import numpy as np
 import torch
 
 from . import api, container, cuda_checks, launch_counts, native, testdata
+from .ops.coder import words_to_bytes
 from .ops.decode import decode_blocks
 from .ops.encode import encode_blocks, encode_blocks_fused, encode_blocks_ranked, fused_selected
 from .ops.model import model_lohi
@@ -93,22 +93,15 @@ def _h2d_gbps(data: bytes, dev: torch.device) -> dict:
     return rates
 
 
-def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10,
-                         verbose: bool = False, *, device="cuda") -> dict:
+def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10, *,
+                         device="cuda") -> dict:
     """Benchmark encode and decode of ``data`` at the shipped defaults on
     ``device``; returns the result dict (see the module docstring)."""
     dev = torch.device(device)
     api._require_cuda(dev)
     if not data:
         raise ValueError("the benchmark needs a non-empty input")
-    t_start = time.perf_counter()
-
-    def vlog(msg):
-        if verbose:
-            print(f"[bench +{time.perf_counter() - t_start:.1f}s] {msg}", file=sys.stderr,
-                  flush=True)
-
-    if not block_size:  # the shipped default: api's auto block sizing
+    if not block_size:  # the shipped default: api's auto block size
         block_size = (api._auto_block_size(len(data)) if len(data) >= api._AUTO_BS_MIN
                       else BLOCK_SIZE)
     params = Parameters.tpu_wide()
@@ -119,23 +112,20 @@ def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10,
     def encode_step():
         return encode_blocks_ranked(x.syms, x.lens, x.init_cum, params, x.n_words, DELTA)
 
-    words, byte_lens, ovf = encode_step()  # warm-up; its streams feed decode
+    words, byte_lens, ovf = encode_step()  # warm-up
     _sync(dev)
     counts0 = launch_counts()
     enc_ms = _times_ms(encode_step, iters, dev)
-    vlog(f"encode: median {_median(enc_ms):.3f} ms of {iters}")
 
-    # Decode input, staged as api.decode stages it.
-    raw = ovf | (byte_lens >= x.lens)
-    coded = torch.where(raw, 0, byte_lens)
-    klens = torch.where(raw, 0, x.lens)
-    order = torch.argsort(coded, stable=True)
-    wcap = min(max(4, -(-int(coded.max()) // 4) + 2), x.n_words + 2)
-    staged = torch.nn.functional.pad(words, (0, 2))[order, :wcap]
-    nwi = (coded[order] + 3) // 4
-    cols = torch.arange(wcap, device=dev)[None, :]
-    staged = torch.where(cols < nwi[:, None], staged, 0).contiguous()
-    klens_o = klens[order].contiguous()
+    # K3's input: the archive's streams, staged by api.decode's own helper
+    # (this api.encode, with the prior as the stages have it at every size,
+    # is also the end-to-end warm-up).
+    archive = api.encode(data, params=params, block_size=k, delta=DELTA, use_prior=True,
+                         device=dev)
+    header, _ = container.parse_archive(archive, with_streams=False)
+    lanes = api._decode_lanes(header)
+    arch_u8 = np.frombuffer(archive, np.uint8)
+    staged, klens_o = api._stage_lanes(arch_u8, header, lanes, lanes.order, dev)
 
     def decode_step():
         return decode_blocks(staged, klens_o, x.init_cum, params, k, DELTA)
@@ -143,16 +133,24 @@ def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10,
     decoded = decode_step()  # warm-up
     dec_ms = _times_ms(decode_step, iters, dev)
     counts1 = launch_counts()
-    vlog(f"decode: median {_median(dec_ms):.3f} ms of {iters}")
 
-    # Verification on the host (untimed); raw blocks spliced from the source.
+    # Verification on the host (untimed): the timed encode's streams are
+    # the archive's, and the decode gives back the input, raw blocks
+    # spliced from the source.
+    raw = (ovf | (byte_lens >= x.lens)).cpu().numpy()
+    enc_bytes = words_to_bytes(words).cpu().numpy()
+    in_stream = np.arange(enc_bytes.shape[1])[None, :] < lanes.coded_lens[:, None]
+    coded = np.flatnonzero(~lanes.raw)
+    verified = (np.array_equal(raw, lanes.raw)
+                and np.array_equal(enc_bytes[in_stream],
+                                   api._gather_slices(arch_u8, header.stream_offs[coded],
+                                                      lanes.coded_lens[coded])))
     got = np.zeros((n_blocks, k), dtype=np.uint8)
-    got[order.cpu().numpy()] = decoded.cpu().numpy()
+    got[lanes.order] = decoded.cpu().numpy()
     src = np.frombuffer(data, np.uint8)
-    blk = x.lens.cpu().numpy()
-    for i in np.flatnonzero(raw.cpu().numpy()):
-        got[i, : blk[i]] = src[i * k : i * k + blk[i]]
-    verified = got.reshape(-1)[:n].tobytes() == data
+    for i in np.flatnonzero(lanes.raw):
+        got[i, : lanes.block_lens[i]] = src[i * k : i * k + lanes.block_lens[i]]
+    verified = verified and got.reshape(-1)[:n].tobytes() == data
 
     # The kernels beside their bounds, each timed alone at the same shapes.
     roofline = None
@@ -175,14 +173,13 @@ def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10,
                               "bound_by": bounds[name]["bound_by"],
                               "share_of_bound": bounds[name]["bound_ms"] / ms}
 
-    # Wire size from the real archive, and end-to-end wall times after one
-    # untimed warm-up pass (the api's shapes differ from the stages').
-    vlog("e2e warm-up")
-    archive = api.encode(data, params=params, block_size=k, delta=DELTA, device=dev)
+    # End-to-end wall times after one untimed warm-up pass each (the api's
+    # shapes differ from the stages').
     verified = verified and api.decode(archive, device=dev) == data
     _sync(dev)
     t0 = time.perf_counter()
-    archive = api.encode(data, params=params, block_size=k, delta=DELTA, device=dev)
+    archive = api.encode(data, params=params, block_size=k, delta=DELTA, use_prior=True,
+                         device=dev)
     _sync(dev)
     t_enc_e2e = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -212,7 +209,6 @@ def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10,
         "block_size": k,
         "kernels": [name for name in counts1 if counts1[name] > counts0[name]],
     }
-    vlog("done")
     return result
 
 

@@ -158,43 +158,36 @@ def run_scaling_worker(
     *,
     device: str = "cuda",
     backend: Optional[str] = None,
-    blocks_per_chunk: int = 0,
 ) -> str:
     """Weak-scaling worker: one process a host, ``bytes_per_host`` of
     ``testdata.text_like`` each (the reference read a corpus file that is
     not part of this repository).
 
-    ``iters`` rounds of encode (K1 -> K2) over the process's shard, then of
-    decode (K3), each between global barriers with the device synchronised
-    before every timestamp: the time is the slowest process's.  The shard
-    goes in chunks of ``blocks_per_chunk`` blocks, 0 for the whole shard in
-    one launch (the reference's 96-block chunks kept a CPU host's cache
-    warm).  Then, untimed, an ordered gather of the decoded shards checked
-    against the input.  Returns one JSON line with the reference's keys
-    (:240-249) and the device and backend.
+    ``iters`` rounds of encode (K1 -> K2) over the process's whole shard in
+    one launch, then of decode (K3), each between global barriers with the
+    device synchronised before every timestamp: the time is the slowest
+    process's.  (The reference coded 96-block chunks to keep a CPU host's
+    cache warm; the card needs no such cut.)  Then, untimed, an ordered
+    gather of the decoded shards checked against the input.  Returns one
+    JSON line with the reference's keys (:240-249) and the device and
+    backend.
     """
     dev, backend = _setup(coordinator, num_processes, process_id, device, backend)
     params = Parameters.tpu_wide()
-    per_host = max(1, bytes_per_host // k)
-    bpc = blocks_per_chunk or per_host
-    bph = max(bpc, per_host // bpc * bpc)  # blocks a host, whole chunks
+    bph = max(1, bytes_per_host // k)  # blocks a host
     data = testdata.text_like(bph * num_processes * k, 0)  # the same on every process
     glob = np.frombuffer(data, np.uint8).reshape(num_processes * bph, k)
-    mine = glob[process_id * bph : (process_id + 1) * bph]
-    chunks = [torch.from_numpy(mine[c : c + bpc].copy()).to(dev) for c in range(0, bph, bpc)]
-    lens = torch.full((bpc,), k, dtype=torch.int32, device=dev)
+    mine = torch.from_numpy(glob[process_id * bph : (process_id + 1) * bph].copy()).to(dev)
+    lens = torch.full((bph,), k, dtype=torch.int32, device=dev)
     ic = uniform_init_cum(params).astype(np.int32)
     ic_t = torch.from_numpy(ic).to(dev)
     n_words = max_block_words(min(257 + delta * k, params.freq_max), params.symbol_count,
                               params, k)
     mesh = [dev]
 
-    def enc(chunk):
-        lo, hi = model_lohi(chunk, lens, ic_t, params, delta)
+    def enc():
+        lo, hi = model_lohi(mine, lens, ic_t, params, delta)
         return encode_blocks_sharded(lo, hi, lens, int(ic[-1]), params, n_words, mesh, delta)
-
-    def dec(coded):
-        return [decode_blocks_sharded(w, lens, ic_t, params, k, mesh, delta) for w, _, _ in coded]
 
     def timed(fn):
         out = fn()  # warm-up
@@ -207,15 +200,10 @@ def run_scaling_worker(
         dist.barrier()
         return out, (time.perf_counter() - t0) / iters
 
-    coded, t_enc = timed(lambda: [enc(c) for c in chunks])
-    decoded, t_dec = timed(lambda: dec(coded))
-
-    ok = not any(bool(o.any()) for _, _, o in coded)
-    for c, d in enumerate(decoded):
-        got = _gather(d, backend).cpu().numpy()
-        want = np.concatenate([glob[p * bph + c * bpc : p * bph + (c + 1) * bpc]
-                               for p in range(num_processes)])
-        ok = ok and np.array_equal(got, want)
+    (words, _, ovf), t_enc = timed(enc)
+    decoded, t_dec = timed(
+        lambda: decode_blocks_sharded(words, lens, ic_t, params, k, mesh, delta))
+    ok = not bool(ovf.any()) and np.array_equal(_gather(decoded, backend).cpu().numpy(), glob)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     return json.dumps({
         "process": process_id,
@@ -229,8 +217,10 @@ def run_scaling_worker(
     })
 
 
-def run_local(num_processes: int, args: Sequence[str], timeout: float) -> list:
-    """Run ``num_processes`` workers of this module on this machine, ranks
+def run_local(num_processes: int, args: Sequence[str], timeout: float,
+              entry: Sequence[str] = ("-m", "redux_tpu_torch.parallel.multihost")) -> list:
+    """Run ``num_processes`` workers on this machine, each ``python
+    *entry`` (this module's :func:`main`, or code that calls it), ranks
     0..N-1 against a free localhost port, with ``args`` added to each
     command line; return each worker's stdout in rank order.  Waits until
     every worker has exited, one has failed (the others would wait on it
@@ -248,8 +238,7 @@ def run_local(num_processes: int, args: Sequence[str], timeout: float) -> list:
                  for _ in range(num_processes)]
         procs = [
             subprocess.Popen(
-                [sys.executable, "-m", "redux_tpu_torch.parallel.multihost",
-                 "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(num_processes),
+                [sys.executable, *entry, "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(num_processes),
                  "--process-id", str(rank), *args],
                 cwd=root, env=env, stdout=out, stderr=err)
             for rank, (out, err) in enumerate(files)

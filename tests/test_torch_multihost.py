@@ -5,11 +5,6 @@ CPU devices of ``conftest.py``.  Each worker asserts that it imported
 neither JAX nor the reference package."""
 
 import json
-import os
-import pathlib
-import socket
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +24,7 @@ from redux_tpu_torch.parallel import multihost
 from redux_tpu_torch.params import Parameters
 from redux_tpu_torch.testdata import incompressible, text_like
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
+# Each worker runs multihost.main, then asserts it imported no JAX.
 WORKER = (
     "import sys\n"
     "from redux_tpu_torch.parallel import multihost\n"
@@ -40,40 +35,9 @@ WORKER = (
 )
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _run_workers(nproc, extra):
-    port = _free_port()
-    env = {
-        **{k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))},
-        # REPLACE PYTHONPATH: the workers import this checkout and nothing else.
-        "PYTHONPATH": str(ROOT),
-    }
-    procs = [
-        subprocess.Popen(
-            [sys.executable, "-c", WORKER, "--coordinator", f"127.0.0.1:{port}",
-             "--num-processes", str(nproc), "--process-id", str(pid), "--device", "cpu",
-             "--backend", "gloo", *extra],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for pid in range(nproc)
-    ]
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=120)
-            outs.append((p.returncode, out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rc, out, err in outs:
-        assert rc == 0, f"worker failed rc={rc}\nstdout:\n{out}\nstderr:\n{err[-3000:]}"
-    return [out for _, out, _ in outs]
+    return multihost.run_local(nproc, ["--device", "cpu", "--backend", "gloo", *extra], 120,
+                               entry=("-c", WORKER))
 
 
 def test_multihost_roundtrip_two_gloo_workers():
