@@ -22,7 +22,12 @@ bench (``redux_tpu_torch.bench``) on the same 64 MiB, the generic-model
 coders at 256 x 4096 of it against K1 + the reference-format coder, K3 and
 the oracle, and the multi-host workers (``parallel.multihost``, two
 processes over gloo, then the scaling worker at 1 and 2 processes; NCCL
-too with two cards or more).  Phases print one line each; the line
+too with two cards or more).  Phase 10 runs the randomized differential
+campaign (``redux_tpu_torch.fuzz``) for a fixed seed: random configs of
+every instantiation class, deltas, block sizes, contents and priors, K1-K5
+against their plain versions and the native serial coder, the ``api``
+route over several lane chunks and the generic coders.  Phases print one
+line each; the line
 before the last is the kernels' JSON summary (each kernel's time at the
 main shapes beside its bound, ``cuda_checks.kernel_bounds``; no single
 PyTorch call computes any of them, so ``library_ms`` is null) and the
@@ -45,6 +50,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 MAIN_BYTES = 64 << 20
 SEED = 2024
 MAIN_PATH = ("model_values", "encode", "decode")  # kernels of the default route
+# Phase 10's campaign: a fixed seed, bounded by trials and by wall clock.
+FUZZ_SEED, FUZZ_TRIALS, FUZZ_MINUTES = 17, 200, 1.25
 
 
 def _route(name, data, ref_arch, device, launched):
@@ -310,6 +317,34 @@ def phase9_multihost(dev, worker_bytes=32 << 20, worker_timeout=300, sizes=(1, 2
                   f"{t1 / (r['t_enc'] + r['t_dec']):.4f} ({where})")
 
 
+def phase10(dev, seed=FUZZ_SEED, trials=FUZZ_TRIALS, minutes=FUZZ_MINUTES):
+    """Phase 10: the randomized differential campaign
+    (``redux_tpu_torch.fuzz``) on ``dev``, trials ``0, 1, ...`` of ``seed``
+    until ``trials`` have run or ``minutes`` have passed, launch counts
+    reset just before and read just after.  Any mismatch fails the phase
+    (the campaign raises); so does a run that did not launch every kernel,
+    hit every instantiation class, freeze a model, store a block raw and
+    take an ``api`` route over several lane chunks."""
+    import redux_tpu_torch
+    from redux_tpu_torch import fuzz
+
+    redux_tpu_torch.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = fuzz.run_campaign(seed, trials, minutes, dev)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    counts = redux_tpu_torch.launch_counts()
+    print("fuzz summary " + json.dumps(s))
+    short = [k for k, n in counts.items() if n == 0]
+    short += [c for c, n in s["classes"].items() if n == 0]
+    short += [k for k in ("frozen", "trials_with_raw", "multi_chunk_routes") if s[k] == 0]
+    if short:
+        raise AssertionError(f"fuzz: nothing of {short} in {s['trials']} trials")
+    print(f"phase 10: {s['trials']} trials of seed {seed}, no mismatch, "
+          f"{s['reference_fault_blocks']} reference_fault blocks, launches {json.dumps(counts)}, "
+          f"{dt:.3f} s wall clock")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -424,6 +459,9 @@ def main() -> int:
 
     # Phase 9: the bench, the generic models and multi-host.
     phase9(dev, data, arch)
+
+    # Phase 10: the randomized differential campaign.
+    phase10(dev)
 
     kernels = []
     for k, (source, replaces) in cuda_checks.KERNELS.items():

@@ -111,12 +111,24 @@ class KernelInputs:
                  device: torch.device):
         ic = api._init_cum(params, api._prior_extra(data, params, api.DEFAULT_PRIOR_BUDGET))
         syms, lens, _ = api._split_blocks(data, block_size)
-        self.params, self.delta, self.k = params, delta, block_size
+        self._place(syms, lens, ic, params, delta, device)
+
+    @classmethod
+    def of_blocks(cls, syms: np.ndarray, lens: np.ndarray, init_cum: np.ndarray,
+                  params: Parameters, delta: int, device: torch.device) -> "KernelInputs":
+        """The kernels' inputs for given ``(B, K)`` uint8 blocks, their
+        ``(B,)`` int32 lengths and an initial row of one's own."""
+        x = cls.__new__(cls)
+        x._place(syms, lens, init_cum, params, delta, device)
+        return x
+
+    def _place(self, syms, lens, ic, params, delta, device) -> None:
+        self.params, self.delta, self.k = params, delta, syms.shape[1]
         self.syms = torch.from_numpy(syms).to(device)
         self.lens = torch.from_numpy(lens).to(device)
         self.init_cum = init_cum_from_numpy(ic, params, device)
         self.init_total = int(ic[-1])
-        self.n_words = api._encode_words(params, block_size, delta)
+        self.n_words = api._encode_words(params, self.k, delta)
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -157,6 +169,15 @@ def _max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def triple_rows(a, b, n_words: int) -> torch.Tensor:
+    """``(B,)`` bool: the blocks where two ``(words, byte_lens, ovf)``
+    triples differ (byte lengths and ovf exactly, the words up to each byte
+    length)."""
+    words, bl, ovf = a
+    wvalid = torch.arange(n_words, device=words.device)[None, :] * 4 < bl[:, None]
+    return (bl != b[1]) | (ovf != b[2]) | ((words != b[0]) & wvalid).any(1)
+
+
 def triple_err(a, b, n_words: int) -> int:
     """Largest difference of two ``(words, byte_lens, ovf)`` triples: byte
     lengths and ovf exactly, the words up to each byte length."""
@@ -166,33 +187,53 @@ def triple_err(a, b, n_words: int) -> int:
     return max(err, _max_abs(words[wvalid], b[0][wvalid]))
 
 
-def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> dict:
+def _require_rows(bad: torch.Tensor, msg: str) -> None:
+    """Raise AssertionError naming the first block of ``bad`` ((B,) bool)
+    and how many there are, unless none is set."""
+    rows = torch.nonzero(bad).flatten().tolist()
+    _require(not rows, f"{msg}: block {rows[0]} first, {len(rows)} blocks" if rows else msg)
+
+
+def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3,
+                    lossy: torch.Tensor | None = None, decode_raw: bool = False) -> dict:
     """Run every kernel and its plain version on ``x``; assert exact
     equality; return per kernel ``max_abs_err``, ``ms`` and ``plain_ms``
-    (each plain version runs once, timed in that run when ``time_plain``)
-    and its bound (:func:`kernel_bounds`).
+    (each plain version runs once, timed in that run when ``time_plain``;
+    each kernel's ``ms`` is the mean of ``reps`` timed launches, None for
+    ``reps=0``) and its bound (:func:`kernel_bounds`).  A difference raises
+    AssertionError naming the kernel and the first block that differs.
 
     K4 and K5 must also give K2's triple on the same input; where the
     parameters are off their path (not ``fits_u32`` or ``fits_wide32``)
     both wrappers must raise ValueError, and their entry says so.
     K3 decodes K2's streams as the main path stages them: blocks stored
     raw (ovf, or not smaller than raw) get no symbols, the rest must come
-    back as their input bytes.  It runs on the lanes in block order and
-    sorted by coded length (the main path's order, ``api.decode``); its
-    ``ms`` is the sorted lanes' time and ``ms_unsorted`` the other.
+    back as their input bytes, but for the blocks set in ``lossy`` ((B,)
+    bool: streams that the reference's own decoder does not give back).
+    With ``decode_raw`` it also decodes the streams not smaller than raw,
+    as ``mesh.decode_blocks_sharded``'s callers do: then only the
+    incomplete streams (ovf, or past the word buffer) get no symbols.
+    It runs on the lanes in block order and sorted by coded length (the
+    main path's order, ``api.decode``); its ``ms`` is the sorted lanes'
+    time and ``ms_unsorted`` the other.  ``k2_triple`` and ``k3_syms`` are
+    K2's and K3's outputs (K3's in block order).
     """
     p, d = x.params, x.delta
     out = {}
     valid = torch.arange(x.k, device=x.syms.device)[None, :] < x.lens[:, None]
 
+    def kernel_ms(fn):
+        return cuda_ms(fn, reps) if reps else None
+
     lo, hi = model_lohi(x.syms, x.lens, x.init_cum, p, d)
     (lo_p, hi_p), plain_ms = plain_run(
         lambda: model_lohi_plain(x.syms, x.lens, x.init_cum, p, d), time_plain)
     err = max(_max_abs(lo[valid], lo_p[valid]), _max_abs(hi[valid], hi_p[valid]))
-    _require(err == 0, f"model_values differs from its plain version (max |diff| {err})")
+    _require_rows((((lo != lo_p) | (hi != hi_p)) & valid).any(1),
+                  f"model_values differs from its plain version (max |diff| {err})")
     out["model_values"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: model_lohi(x.syms, x.lens, x.init_cum, p, d), reps),
+        "ms": kernel_ms(lambda: model_lohi(x.syms, x.lens, x.init_cum, p, d)),
         "plain_ms": plain_ms,
     }
 
@@ -200,10 +241,11 @@ def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> 
     coded = encode_blocks(*enc)
     coded_p, plain_ms = plain_run(lambda: encode_blocks_plain(*enc), time_plain)
     err = triple_err(coded, coded_p, x.n_words)
-    _require(err == 0, f"encode differs from its plain version (max |diff| {err})")
+    _require_rows(triple_rows(coded, coded_p, x.n_words),
+                  f"encode differs from its plain version (max |diff| {err})")
     out["encode"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: encode_blocks(*enc), reps),
+        "ms": kernel_ms(lambda: encode_blocks(*enc)),
         "plain_ms": plain_ms,
     }
 
@@ -221,19 +263,22 @@ def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> 
         mine = kernel(*sym_args)
         mine_p, plain_ms = plain_run(lambda: plain(*sym_args), time_plain)
         err = triple_err(mine, mine_p, x.n_words)
-        _require(err == 0, f"{name} differs from its plain version (max |diff| {err})")
+        _require_rows(triple_rows(mine, mine_p, x.n_words),
+                      f"{name} differs from its plain version (max |diff| {err})")
         err_k2 = triple_err(mine, coded, x.n_words)
-        _require(err_k2 == 0, f"{name} differs from K1 -> K2 (max |diff| {err_k2})")
+        _require_rows(triple_rows(mine, coded, x.n_words),
+                      f"{name} differs from K1 -> K2 (max |diff| {err_k2})")
         out[name] = {
             "max_abs_err": max(err, err_k2),
-            "ms": cuda_ms(lambda: kernel(*sym_args), reps),
+            "ms": kernel_ms(lambda: kernel(*sym_args)),
             "plain_ms": plain_ms,
         }
 
     words, bl, ovf = coded
     raw = ovf | (bl >= x.lens)
-    klens = torch.where(raw, 0, x.lens).to(torch.int32)
-    coded_max = int(torch.where(raw, 0, bl).max())
+    skip = ovf | (bl > 4 * x.n_words) if decode_raw else raw
+    klens = torch.where(skip, 0, x.lens).to(torch.int32)
+    coded_max = int(torch.where(skip, 0, bl).max())
     wcap = min(max(4, -(-coded_max // 4) + 2), x.n_words + 2)
     # The coder leaves zeros past each stream; two zero words follow the longest.
     staged = torch.nn.functional.pad(words, (0, 2))[:, :wcap].contiguous()
@@ -241,25 +286,29 @@ def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3) -> 
     syms = decode_blocks(*dec)
     syms_p, plain_ms = plain_run(lambda: decode_blocks_plain(*dec), time_plain)
     err = _max_abs(syms, syms_p)
-    _require(err == 0, f"decode differs from its plain version (max |diff| {err})")
-    order = torch.argsort(torch.where(raw, 0, bl), stable=True)
+    _require_rows((syms != syms_p).any(1),
+                  f"decode differs from its plain version (max |diff| {err})")
+    order = torch.argsort(torch.where(skip, 0, bl), stable=True)
     dec_sorted = (staged[order].contiguous(), klens[order].contiguous(), x.init_cum, p, x.k, d)
-    err_sorted = _max_abs(decode_blocks(*dec_sorted), syms_p[order])
-    _require(err_sorted == 0,
-             f"decode on sorted lanes differs from its plain version (max |diff| {err_sorted})")
-    ok = ~raw
-    _require(torch.equal(torch.where(valid[ok], syms[ok], 0),
-                         torch.where(valid[ok], x.syms[ok], 0)), "decode lost the input")
+    syms_sorted = decode_blocks(*dec_sorted)
+    err_sorted = _max_abs(syms_sorted, syms_p[order])
+    bad = torch.zeros_like(skip)
+    bad[order] = (syms_sorted != syms_p[order]).any(1)
+    _require_rows(bad, "decode on sorted lanes differs from its plain version "
+                  f"(max |diff| {err_sorted})")
+    must = ~skip if lossy is None else ~skip & ~lossy
+    _require_rows(must & ((syms != x.syms) & valid).any(1), "decode lost the input")
     out["decode"] = {
         "max_abs_err": max(err, err_sorted),
-        "ms": cuda_ms(lambda: decode_blocks(*dec_sorted), reps),
-        "ms_unsorted": cuda_ms(lambda: decode_blocks(*dec), reps),
+        "ms": kernel_ms(lambda: decode_blocks(*dec_sorted)),
+        "ms_unsorted": kernel_ms(lambda: decode_blocks(*dec)),
         "plain_ms": plain_ms,
     }
     for name, b in kernel_bounds(x, staged, klens).items():
         out[name].update(b)
     out["raw_blocks"] = int(raw.sum())
     out["k2_triple"] = coded
+    out["k3_syms"] = syms
     return out
 
 

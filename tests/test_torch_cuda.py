@@ -309,3 +309,35 @@ def test_multihost_workers_on_the_card(cuda_device):
     assert all(f"MULTIHOST OK p{r}/2" in out for r, out in enumerate(outs)), outs
     outs = multihost.run_local(2, args + ["--scaling", "--bytes-per-host", str(1 << 20)], 300)
     assert all(json.loads(o.strip().splitlines()[-1])["verified"] for o in outs), outs
+
+
+@pytest.mark.cuda
+def test_fuzz_campaign_on_the_card(cuda_device):
+    """Trials 0-7 of seed 0 of the randomized differential campaign: K1-K5
+    against their plain versions and the native coder, two ``api`` routes
+    (trial 0 over several lane chunks) and two generic legs, no mismatch."""
+    import redux_tpu_torch
+    from redux_tpu_torch import fuzz
+
+    redux_tpu_torch.reset_launch_counts()
+    s = fuzz.run_campaign(0, trials=8, device=cuda_device)
+    assert s["trials"] == 8, s
+    assert s["api_routes"] == 2 and s["multi_chunk_routes"] == 1 and s["generic"] == 2, s
+    counts = redux_tpu_torch.launch_counts()
+    assert all(counts[k] > 0 for k in ("model_values", "encode", "decode")), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,index,cfg,cls", [(1, 28, (8, 20, 32), "fits53"),
+                                                (8, 16, (8, 21, 32), "u64")])
+def test_fuzz_trial_at_the_53_bit_edge(cuda_device, seed, index, cfg, cls):
+    """One campaign trial on either side of ``products_fit_53``'s edge:
+    (8,20,32), the last config whose quotients K2 and K3 take from
+    reciprocals, and (8,21,32), the first with u64 divisions (there the
+    ``api`` route runs several lane chunks)."""
+    from redux_tpu_torch import fuzz
+
+    trial = fuzz.draw(seed, index)
+    assert trial.cfg == cfg
+    res = fuzz.run_trial(trial, cuda_device)
+    assert res["class"] == cls and res["route_chunks"] is not None, res

@@ -209,7 +209,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert {"redux_tpu_torch.cli", "redux_tpu_torch.native", "redux_tpu_torch.oracle",
             "redux_tpu_torch.bitio", "redux_tpu_torch.models.fenwick",
             "redux_tpu_torch.ops.bitpack", "redux_tpu_torch.ops.generic",
-            "redux_tpu_torch.parallel.multihost", "redux_tpu_torch.bench"} <= set(modules)
+            "redux_tpu_torch.parallel.multihost", "redux_tpu_torch.bench",
+            "redux_tpu_torch.fuzz"} <= set(modules)
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
     assert set(redux_tpu_torch.launch_counts()) == {
         "model_values", "encode", "decode", "encode_fused", "encode_m"}
