@@ -26,7 +26,14 @@ too with two cards or more).  Phase 10 runs the randomized differential
 campaign (``redux_tpu_torch.fuzz``) for a fixed seed: random configs of
 every instantiation class, deltas, block sizes, contents and priors, K1-K5
 against their plain versions and the native serial coder, the ``api``
-route over several lane chunks and the generic coders.  Phases print one
+route over several lane chunks and the generic coders.  Phase 11 runs at
+multi-GB size: 2 GiB + 1 MiB of ``testdata.mixed`` through ``api.encode``
+-> ``decode`` (nine lane chunks each way, one launch each of K1, K2 and K3
+a chunk, two chunks held to the plain versions), the bench on 256 MiB of
+``text_like`` and on the first 1 GiB of the big input, the CLI over 512
+MiB (two chunks each way at (8,30,32), one held to the plain versions),
+and the container corruption sweep through K3, then phase 5's round trip
+again.  Phases print one
 line each; the line
 before the last is the kernels' JSON summary (each kernel's time at the
 main shapes beside its bound, ``cuda_checks.kernel_bounds``; no single
@@ -40,6 +47,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import resource
 import subprocess
 import sys
 import time
@@ -52,6 +60,15 @@ SEED = 2024
 MAIN_PATH = ("model_values", "encode", "decode")  # kernels of the default route
 # Phase 10's campaign: a fixed seed, bounded by trials and by wall clock.
 FUZZ_SEED, FUZZ_TRIALS, FUZZ_MINUTES = 17, 200, 1.25
+# Phase 11, at size: past 2**31 bytes (where an int32 byte offset would
+# wrap), 524,544 blocks of 4 KiB, nine lane chunks each way; the CLI at
+# (8,30,32) over two chunks each way; the bench at two of PERF.md's cells
+# (256 MiB of text_like, the first 1 GiB of the big input); the corruption
+# sweep on a 1 MiB archive.
+BIG_BYTES = (1 << 31) + (1 << 20)
+CLI_BYTES = 512 << 20
+BENCH_BYTES = (256 << 20, 1 << 30)
+SWEEP_BYTES = 1 << 20
 
 
 def _route(name, data, ref_arch, device, launched):
@@ -345,6 +362,208 @@ def phase10(dev, seed=FUZZ_SEED, trials=FUZZ_TRIALS, minutes=FUZZ_MINUTES):
           f"{dt:.3f} s wall clock")
 
 
+def _peak_rss_gib():
+    """This process's peak resident set so far, GiB (Linux reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
+
+
+def _peak_device_gib(dev):
+    """The allocator's peak since its last reset, GiB, and a new reset."""
+    peak = torch.cuda.max_memory_allocated(dev) / (1 << 30)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return peak
+
+
+def _at_size(dev, data):
+    """Phase 11 (a): ``api.encode`` -> ``decode`` of ``data`` at the shipped
+    defaults, launch counts reset just before the encode and read after
+    each way: K1 and K2 once a lane chunk, K3 once a chunk.  Byte-equal
+    (``decode`` verifies the crc); the middle and the last chunk are held
+    to the plain versions (``cuda_checks.check_chunk_streams``).  Prints
+    wall clock, host phases, peak device memory and the rise of the peak
+    host RSS each way."""
+    import redux_tpu_torch
+    from redux_tpu_torch import api
+
+    k = api._default_block_size(len(data))
+    n_blocks = -(-len(data) // k)
+    enc_chunk = api._lane_chunk(api.ENC_CHUNK_BYTES, k)
+    dec_chunk = api._lane_chunk(api.DEC_CHUNK_BYTES, k)
+    n_enc, n_dec = -(-n_blocks // enc_chunk), -(-n_blocks // dec_chunk)
+    _sync(dev)
+    _peak_device_gib(dev)
+    rss0 = _peak_rss_gib()
+    redux_tpu_torch.reset_launch_counts()
+    t_enc, t_dec = {}, {}
+    t0 = time.perf_counter()
+    arch = api.encode(data, device=dev, _timings=t_enc)
+    _sync(dev)
+    t1 = time.perf_counter()
+    enc_counts = redux_tpu_torch.launch_counts()
+    dev_enc, rss1 = _peak_device_gib(dev), _peak_rss_gib()
+    back = api.decode(arch, device=dev, _timings=t_dec)
+    _sync(dev)
+    t2 = time.perf_counter()
+    counts = redux_tpu_torch.launch_counts()
+    dev_dec, rss2 = _peak_device_gib(dev), _peak_rss_gib()
+    if back != data:
+        raise AssertionError("at size: round trip is not byte-equal")
+    del back
+    want_enc = dict.fromkeys(counts, 0) | {"model_values": n_enc, "encode": n_enc}
+    if enc_counts != want_enc or counts != want_enc | {"decode": n_dec}:
+        raise AssertionError(f"at size: launches {enc_counts} after encode, {counts} after "
+                             f"decode; want {n_enc} K1 and K2, {n_dec} K3")
+    gib = len(data) / (1 << 30)
+    print(f"at size: {len(data)} bytes ({gib:.6f} GiB), {n_blocks} blocks of {k}, {n_enc} "
+          f"encode chunks of <= {enc_chunk} blocks, {n_dec} decode chunks of <= {dec_chunk}; "
+          f"archive {len(arch)} bytes, ratio {len(arch) / len(data):.6f}; round trip "
+          f"byte-equal, crc verified; launches {json.dumps(counts)}")
+    print(f"at size: encode {t1 - t0:.3f} s ({len(data) / (t1 - t0) / 1e6:.3f} MB/s), decode "
+          f"{t2 - t1:.3f} s ({len(data) / (t2 - t1) / 1e6:.3f} MB/s), wall clock with host work")
+    print("at size: encode phases s " + json.dumps({k: round(v, 4) for k, v in t_enc.items()}))
+    print("at size: decode phases s " + json.dumps({k: round(v, 4) for k, v in t_dec.items()}))
+    print(f"at size: peak device memory {dev_enc:.3f} GiB encode, {dev_dec:.3f} GiB decode; "
+          f"peak host RSS {rss0:.3f} GiB before, +{rss1 - rss0:.3f} GiB by the encode's end, "
+          f"+{rss2 - rss0:.3f} GiB by the decode's end")
+    _check_chunks("at size", data, arch, dev, [n_enc // 2, n_enc - 1])
+
+
+def _check_chunks(what, data, arch, dev, chunks):
+    """``cuda_checks.check_chunk_streams`` on ``chunks`` of ``arch``, one
+    line a chunk with the plain versions' times."""
+    from redux_tpu_torch import cuda_checks
+
+    t0 = time.perf_counter()
+    for s0, n, n_raw, plain_ms in cuda_checks.check_chunk_streams(data, arch, dev, chunks):
+        print(f"{what}: chunk of blocks {s0}..{s0 + n - 1} ({n} blocks) held to the plain "
+              "versions: K1 -> K2 in one launch equal to model_lohi_plain -> "
+              f"encode_blocks_plain, {n_raw} raw blocks and every stream equal to the "
+              "archive's, K3 equal to decode_blocks_plain on the archive's streams; plain ms "
+              + json.dumps({k: round(v, 3) for k, v in plain_ms.items()}))
+    _sync(dev)
+    print(f"{what}: chunk checks {time.perf_counter() - t0:.3f} s")
+
+
+def phase11(dev):
+    """Phase 11: the main path, the bench and the CLI at multi-GB size.
+
+    (a) :func:`_at_size` on ``testdata.mixed(BIG_BYTES)``; (b) the bench on
+    the first ``BENCH_BYTES[0]`` bytes of ``testdata.text_like(CLI_BYTES)``
+    (``text_like(BENCH_BYTES[0])`` itself) and on the first
+    ``BENCH_BYTES[1]`` of the big input, verified, with its peak device
+    memory; (c) the CLI at its defaults ((8,30,32)) through files on the
+    text input, ``cmp``-equal, launching each of K1-K3 once a chunk, its
+    last chunk held to the plain versions in their u64 instantiations;
+    (d) the container corruption sweep (``cuda_checks.corruption_sweep``)
+    through K3 on a ``SWEEP_BYTES`` archive of ``text_like``, and the
+    over-long stream of ``tests/test_torch_fuzz_container.py``."""
+    import filecmp
+    import shutil
+    import struct
+
+    import redux_tpu_torch
+    from redux_tpu_torch import api, bench, container, cuda_checks, testdata
+    from redux_tpu_torch.errors import InvalidInputError
+
+    t_phase = time.perf_counter()
+    rss0 = _peak_rss_gib()
+    text = testdata.text_like(CLI_BYTES, SEED)
+    t_text = time.perf_counter() - t_phase
+    big = testdata.mixed(BIG_BYTES, SEED)
+    print(f"phase 11 inputs: text_like {len(text)} bytes and mixed {len(big)} bytes (seed "
+          f"{SEED}) in {t_text:.3f} + {time.perf_counter() - t_phase - t_text:.3f} s (one "
+          f"thread); peak host RSS {rss0:.3f} GiB "
+          f"before, {_peak_rss_gib():.3f} GiB after")
+
+    # (a) The main path at size.
+    _at_size(dev, big)
+
+    # (b) The bench at two sizes.
+    for name, whole, n in ((f"text_like {BENCH_BYTES[0]}", text, BENCH_BYTES[0]),
+                           (f"mixed {BENCH_BYTES[1]}", big, BENCH_BYTES[1])):
+        t0 = time.perf_counter()
+        rss0 = _peak_rss_gib()
+        res = bench.run_device_benchmark(whole[:n], device=dev)
+        _sync(dev)
+        print(f"bench[{name}] " + json.dumps(res))
+        if not res["verified"]:
+            raise AssertionError(f"bench[{name}]: round trip not verified")
+        peak = res["peak_device_bytes"] / (1 << 30)
+        print(f"bench[{name}]: verified, peak device memory {peak:.3f} GiB, "
+              f"peak host RSS +{_peak_rss_gib() - rss0:.3f} GiB, "
+              f"{time.perf_counter() - t0:.3f} s wall clock")
+    del big, whole
+
+    # (c) The CLI at its defaults through files.
+    work = ROOT / "build" / "chip_smoke11"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        src, arch_f, back_f = work / "in.bin", work / "in.rxt", work / "back.bin"
+        src.write_bytes(text)
+        k = api._default_block_size(len(text))
+        n_chunks = -(-len(text) // (k * api._lane_chunk(api.ENC_CHUNK_BYTES, k)))
+        for mode, argv, want in (
+                ("compress", ["-c", "-i", str(src), "-o", str(arch_f)],
+                 {"model_values": n_chunks, "encode": n_chunks}),
+                ("decompress", ["-d", "-i", str(arch_f), "-o", str(back_f)],
+                 {"decode": n_chunks})):
+            redux_tpu_torch.reset_launch_counts()
+            t0 = time.perf_counter()
+            line = _cli(argv, dev)
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            counts = redux_tpu_torch.launch_counts()
+            if counts != dict.fromkeys(counts, 0) | want:
+                raise AssertionError(f"cli {mode}: launches {counts}, want {want}")
+            print(f"cli at size {mode}: {dt:.3f} s wall clock with file I/O, {line!r}, "
+                  f"launches {json.dumps(counts)}")
+        if not filecmp.cmp(src, back_f, shallow=False):
+            raise AssertionError("cli at size: output differs from the input")
+        cli_arch = arch_f.read_bytes()
+        header, _ = container.parse_archive(cli_arch, with_streams=False)
+        p = header.params
+        print(f"cli at size: {len(text)} bytes, ({p.symbol_bits},{p.freq_bits},{p.code_bits}) "
+              f"delta {header.delta}, {header.n_blocks} blocks of {header.block_size} in "
+              f"{n_chunks} chunks each way, archive {len(cli_arch)} bytes, output "
+              "cmp-equal to the input")
+        _check_chunks("cli at size", text, cli_arch, dev, [n_chunks - 1])
+        del cli_arch
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (d) The corruption sweep through K3.
+    data = text[:SWEEP_BYTES]
+    del text
+    arch = api.encode(data, device=dev)
+    redux_tpu_torch.reset_launch_counts()
+    t0 = time.perf_counter()
+    sweep = cuda_checks.corruption_sweep(data, arch, dev)
+    header, _ = container.parse_archive(arch, with_streams=False)
+    lens = list(header.block_byte_lens)
+    bad = bytearray(arch)  # block 0's stream longer than the decoder's row can hold
+    struct.pack_into(f"<{len(lens)}I", bad, container.HEADER_BYTES, sum(lens),
+                     *[0] * (len(lens) - 1))
+    try:
+        api.decode(bytes(bad), device=dev)
+    except InvalidInputError:
+        sweep["over-long stream"] = {"raised": 1, "exact": 0}
+    else:
+        raise AssertionError("an over-long stream decoded without an error")
+    _sync(dev)
+    counts = redux_tpu_torch.launch_counts()
+    n = sum(sum(v.values()) for v in sweep.values())
+    print(f"corruption sweep: {n} corrupted archives of a {len(arch)}-byte archive "
+          f"({len(data)} bytes of text_like, {header.n_blocks} blocks): "
+          + ", ".join(f"{kind} {v['raised']} raised, {v['exact']} exact"
+                      for kind, v in sweep.items())
+          + f"; no wrong bytes, no CUDA error; launches {json.dumps(counts)}; "
+          f"{time.perf_counter() - t0:.3f} s")
+    if counts["decode"] == 0:
+        raise AssertionError("corruption sweep: K3 never ran")
+    print(f"phase 11: {time.perf_counter() - t_phase:.3f} s wall clock")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -462,6 +681,12 @@ def main() -> int:
 
     # Phase 10: the randomized differential campaign.
     phase10(dev)
+
+    # Phase 11: the main path, the bench and the CLI at multi-GB size; then
+    # phase 5's round trip again, to show the CUDA context came through the
+    # corruption sweep.
+    phase11(dev)
+    _route("after the sweep", data, arch, dev, main_on)
 
     kernels = []
     for k, (source, replaces) in cuda_checks.KERNELS.items():

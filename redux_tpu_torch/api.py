@@ -57,6 +57,9 @@ LANE_QUANTUM = 1024
 _AUTO_BS_MIN = 1 << 21  # auto block sizing applies to inputs >= 2 MiB
 ENC_CHUNK_BYTES = 256 << 20  # input bytes per encode dispatch
 DEC_CHUNK_BYTES = 256 << 20  # decoded bytes per decode dispatch
+# Bytes a histogram step: NumPy's bincount widens each byte to 8, so the
+# input is counted in segments (128 MiB of transient at most).
+_HIST_SEGMENT = 16 << 20
 
 
 def _static_words(params: Parameters, k: int, delta: int = DEFAULT_DELTA) -> int:
@@ -64,15 +67,27 @@ def _static_words(params: Parameters, k: int, delta: int = DEFAULT_DELTA) -> int
     return max_block_words(max_count, params.symbol_count, params, k)
 
 
+def _block_rows(src: np.ndarray, s0: int, s1: int, block_size: int) -> np.ndarray:
+    """Blocks ``s0 .. s1`` of the uint8 array ``src`` as a fresh
+    ``(s1 - s0, block_size)`` array, zero past the end of ``src``."""
+    part = src[s0 * block_size : s1 * block_size]
+    rows = np.zeros((s1 - s0) * block_size, dtype=np.uint8)
+    rows[: part.size] = part
+    return rows.reshape(s1 - s0, block_size)
+
+
+def _block_lens(n: int, block_size: int) -> np.ndarray:
+    """(n_blocks,) int32 symbols a block of an ``n``-byte input."""
+    n_blocks = -(-n // block_size)
+    return np.minimum(block_size, n - block_size * np.arange(n_blocks, dtype=np.int64)
+                      ).astype(np.int32)
+
+
 def _split_blocks(data: bytes, block_size: int):
     """(n_blocks, block_size) uint8 blocks (zero tail) and their lengths."""
-    n_blocks = (len(data) + block_size - 1) // block_size
-    lens = np.full(n_blocks, block_size, dtype=np.int32)
-    if len(data) % block_size:
-        lens[-1] = len(data) % block_size
-    syms = np.zeros(n_blocks * block_size, dtype=np.uint8)
-    syms[: len(data)] = np.frombuffer(data, dtype=np.uint8)
-    return syms.reshape(n_blocks, block_size), lens, n_blocks
+    lens = _block_lens(len(data), block_size)
+    syms = _block_rows(np.frombuffer(data, dtype=np.uint8), 0, lens.size, block_size)
+    return syms, lens, lens.size
 
 
 def _encode_words(params: Parameters, k: int, delta: int) -> int:
@@ -87,7 +102,10 @@ def _prior_extra(data: bytes, params: Parameters, prior_budget: int) -> Optional
     None for empty input or an all-zero quantization."""
     if not data:
         return None
-    hist = np.bincount(np.frombuffer(data, dtype=np.uint8), minlength=256)
+    src = np.frombuffer(data, dtype=np.uint8)
+    hist = np.zeros(256, dtype=np.int64)
+    for s0 in range(0, src.size, _HIST_SEGMENT):
+        hist += np.bincount(src[s0 : s0 + _HIST_SEGMENT], minlength=256)
     extra = quantize_prior(hist, params, min(prior_budget, params.freq_max // 2))[:256]
     return extra if extra.max(initial=0) > 0 else None
 
@@ -107,6 +125,17 @@ def _auto_block_size(n: int, lane_quantum: int = LANE_QUANTUM) -> int:
     lanes = -(-blocks0 // lane_quantum) * lane_quantum
     k = -(-(-(-n // lanes)) // 256) * 256
     return max(k, 1024)
+
+
+def _lane_chunk(chunk_bytes: int, block_size: int) -> int:
+    """Blocks (lanes) a chunk of ``encode`` or ``decode`` takes:
+    ``chunk_bytes`` of blocks, a multiple of 128 and at least 128."""
+    return max(128, (chunk_bytes // max(block_size, 1)) // 128 * 128)
+
+
+def _default_block_size(n: int, lane_quantum: int = LANE_QUANTUM) -> int:
+    """``encode``'s block size for ``n`` bytes: 4 KiB, auto-sized from 2 MiB."""
+    return _auto_block_size(n, lane_quantum) if n >= _AUTO_BS_MIN else DEFAULT_BLOCK_SIZE
 
 
 def _gather_slices(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
@@ -129,6 +158,16 @@ def _gather_slices(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
         out[pos : pos + n] = buf[idx]
         pos += n
     return out
+
+
+def _slice_rows(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
+                width: int) -> np.ndarray:
+    """``(len(starts), width)`` uint8 rows, row i ``buf[starts[i] :
+    starts[i] + lens[i]]`` followed by zeros (``lens <= width``)."""
+    rows = np.zeros((len(starts), width), dtype=np.uint8)
+    rows[np.arange(width, dtype=np.int32)[None, :] < lens[:, None]] = \
+        _gather_slices(buf, starts, lens)
+    return rows
 
 
 def _check_config(params: Parameters, block_size: int, delta: int, init_total: int):
@@ -200,11 +239,7 @@ def encode(
     device, mesh = _placement(device)
     params = params or Parameters.tpu_wide()
     if block_size is None:
-        block_size = (
-            _auto_block_size(len(data), lane_quantum)
-            if len(data) >= _AUTO_BS_MIN
-            else DEFAULT_BLOCK_SIZE
-        )
+        block_size = _default_block_size(len(data), lane_quantum)
     if params.symbol_bits != 8:
         raise InvalidInputError("the RXT container is byte-only (symbol_bits = 8)")
     if use_prior is None:
@@ -219,18 +254,23 @@ def encode(
     if len(data) == 0:
         return container.build_archive(params, block_size, 0, [], prior_extra, delta, crc)
 
-    syms, lens, n_blocks = _split_blocks(data, block_size)
+    src = np.frombuffer(data, dtype=np.uint8)
     k = block_size
+    lens = _block_lens(len(data), k)
+    n_blocks = lens.size
     n_words = _encode_words(params, k, delta)
-    blk_lens = np.minimum(block_size, len(data) - block_size * np.arange(n_blocks, dtype=np.int64))
     ic_t = init_cum_from_numpy(ic, params, device)
     clock.mark("split")
 
-    chunk = max(128, (ENC_CHUNK_BYTES // k) // 128 * 128)
-    cat_parts, bl_parts, raw_parts = [], [], []
+    # One lane chunk at a time: its blocks, the kernels, and its slice of
+    # the payload (coded streams and raw blocks in block order), so the
+    # host's transients are a chunk's whatever the input's size.
+    chunk = _lane_chunk(ENC_CHUNK_BYTES, k)
+    pieces, wire_parts, raw_parts = [], [], []
     for s0 in range(0, n_blocks, chunk):
         s1 = min(s0 + chunk, n_blocks)
-        syms_t = torch.from_numpy(syms[s0:s1]).to(device)
+        rows = _block_rows(src, s0, s1, k)
+        syms_t = torch.from_numpy(rows).to(device)
         lens_t = torch.from_numpy(lens[s0:s1]).to(device)
         if mesh is None:
             words, bl, ov = encode_blocks_ranked(syms_t, lens_t, ic_t, params, n_words, delta)
@@ -241,42 +281,31 @@ def encode(
         ov_i = ov.cpu().numpy()
         wcap = min(max(1, -(-int(bl_i.max(initial=1)) // 4)), n_words)
         byts_i = words_to_bytes(words[:, :wcap]).cpu().numpy()
+        del syms_t, words  # on the CPU syms_t is ``rows``, rewritten below
         # Stored raw: overflowed blocks and any block not smaller coded.
-        raw_i = ov_i | (bl_i >= blk_lens[s0:s1])
+        raw_i = ov_i | (bl_i >= lens[s0:s1])
         if int(bl_i.max(initial=0)) > 4 * n_words and not bool(
             raw_i[bl_i > 4 * n_words].all()
         ):
             raise InvalidInputError()  # buffer bound violated: never silent
-        mask = (
-            np.arange(byts_i.shape[1], dtype=np.int32)[None, :]
-            < np.where(raw_i, 0, bl_i)[:, None]
-        )
-        cat_parts.append(byts_i[mask])
-        bl_parts.append(bl_i)
+        # Each coded block's row takes its stream (shorter than the block);
+        # a raw block's row keeps its bytes.  The wire bytes are each row's
+        # first wire_len bytes.
+        coded = np.flatnonzero(~raw_i)
+        width = min(k, byts_i.shape[1])
+        rows[coded, :width] = byts_i[coded, :width]
+        wire_i = np.where(raw_i, lens[s0:s1], bl_i)
+        pieces.append(rows[np.arange(k, dtype=np.int32)[None, :] < wire_i[:, None]])
+        wire_parts.append(wire_i)
         raw_parts.append(raw_i)
-    byte_lens = np.concatenate(bl_parts)
-    raw_v = np.concatenate(raw_parts)
-    coded_cat = np.concatenate(cat_parts)
     clock.mark("kernel+fetch")
 
-    # Splice: coded bytes are in block order; raw blocks go in at their places.
-    coded_lens = np.where(raw_v, 0, byte_lens)
-    raw_idx = np.flatnonzero(raw_v)
-    if raw_idx.size:
-        cuts = np.cumsum(coded_lens)[raw_idx]
-        pieces = np.split(coded_cat, cuts)
-        parts = []
-        for j, i in enumerate(raw_idx):
-            parts.append(pieces[j].tobytes())
-            parts.append(data[i * block_size : i * block_size + blk_lens[i]])
-        parts.append(pieces[-1].tobytes())
-        payload = b"".join(parts)
-    else:
-        payload = coded_cat.tobytes()
-    wire_lens = np.where(raw_v, blk_lens, byte_lens).astype(np.int64)
+    payload = b"".join(pieces)
+    del pieces
     out = container.build_archive(
         params, block_size, len(data), [], prior_extra, delta, crc,
-        raw_v.tolist(), payload=payload, stream_lens=wire_lens.tolist(),
+        np.concatenate(raw_parts).tolist(), payload=payload,
+        stream_lens=np.concatenate(wire_parts).astype(np.int64).tolist(),
     )
     clock.mark("splice")
     return out
@@ -294,14 +323,19 @@ class _Lanes(NamedTuple):
 def _decode_lanes(header) -> _Lanes:
     """Which blocks of ``header`` are coded, their stream lengths and the
     order K3 takes them in; InvalidInputError where a raw block's stored
-    length is not its block length."""
-    block_lens = np.asarray(header.block_lens, dtype=np.int32)
+    length is not its block length, or a coded stream is longer than the
+    decoder's row (``n_words + 2`` words, :func:`_stage_lanes`) can hold:
+    the encoder never writes one."""
+    block_lens = _block_lens(header.orig_len, max(header.block_size, 1))  # parse checked n_blocks
     raw = (np.asarray(header.block_raw, dtype=bool) if header.block_raw
            else np.zeros(header.n_blocks, dtype=bool))
     stream_lens = np.asarray(header.block_byte_lens, dtype=np.int64)
     if (stream_lens[raw] != block_lens[raw]).any():
         raise InvalidInputError()
     coded_lens = np.where(raw, 0, stream_lens)
+    n_words = _static_words(header.params, header.block_size, header.delta)
+    if coded_lens.max(initial=0) > 4 * (n_words + 2):
+        raise InvalidInputError()
     return _Lanes(raw, block_lens, coded_lens, np.argsort(coded_lens, kind="stable"))
 
 
@@ -315,9 +349,7 @@ def _stage_lanes(arch_u8: np.ndarray, header, lanes: _Lanes, sel: np.ndarray,
     n_words = _static_words(header.params, header.block_size, header.delta)
     lens_o = lanes.coded_lens[sel]
     wcap = min(max(4, -(-int(lens_o.max(initial=0)) // 4) + 2), n_words + 2)
-    cat = _gather_slices(arch_u8, header.stream_offs[sel], lens_o)
-    byts = np.zeros((len(sel), wcap * 4), dtype=np.uint8)
-    byts[np.arange(wcap * 4, dtype=np.int32)[None, :] < lens_o[:, None]] = cat
+    byts = _slice_rows(arch_u8, header.stream_offs[sel], lens_o, wcap * 4)
     klens = np.where(lanes.raw[sel], 0, lanes.block_lens[sel]).astype(np.int32)
     return bytes_to_words(torch.from_numpy(byts).to(device)), torch.from_numpy(klens).to(device)
 
@@ -347,33 +379,29 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     ic_t = init_cum_from_numpy(ic, params, device)
     clock.mark("parse")
 
-    chunk = max(128, (DEC_CHUNK_BYTES // max(k, 1)) // 128 * 128)
+    # Each chunk of lanes decodes straight into its blocks' rows; a raw
+    # block's row is its stored bytes.  Every row is written once.
+    chunk = _lane_chunk(DEC_CHUNK_BYTES, k)
     syms_u8 = np.empty((n_blocks, k), dtype=np.uint8)
     for s0 in range(0, n_blocks, chunk):
-        s1 = min(s0 + chunk, n_blocks)
-        sel = lanes.order[s0:s1]
+        sel = lanes.order[s0 : s0 + chunk]
         if lanes.coded_lens[sel].max(initial=0) == 0:  # all-raw slab: no kernel work
-            syms_u8[s0:s1] = 0
+            syms_u8[sel] = 0
             continue
         words, klens = _stage_lanes(arch_u8, header, lanes, sel, device)
         if mesh is None:
             out = decode_blocks(words, klens, ic_t, params, k, header.delta)
         else:
             out = decode_blocks_sharded(words, klens, ic_t, params, k, mesh, header.delta)
-        syms_u8[s0:s1] = out.cpu().numpy()
+        syms_u8[sel] = out.cpu().numpy()
     clock.mark("stage+kernel+fetch")
 
-    inv = np.empty(n_blocks, dtype=np.int64)
-    inv[lanes.order] = np.arange(n_blocks)
-    flat = syms_u8[inv]  # back in block order
-    if lanes.raw.any():
-        ri = np.flatnonzero(lanes.raw)
-        rlens = lanes.block_lens[ri].astype(np.int64)
-        cat = _gather_slices(arch_u8, header.stream_offs[ri], rlens)
-        rows = np.zeros((ri.size, k), dtype=np.uint8)
-        rows[np.arange(k, dtype=np.int32)[None, :] < rlens[:, None]] = cat
-        flat[ri] = rows
-    out = flat.reshape(-1)[: header.orig_len].tobytes()
+    ri = np.flatnonzero(lanes.raw)
+    for s0 in range(0, ri.size, chunk):
+        r = ri[s0 : s0 + chunk]
+        syms_u8[r] = _slice_rows(arch_u8, header.stream_offs[r],
+                                 lanes.block_lens[r].astype(np.int64), k)
+    out = syms_u8.reshape(-1)[: header.orig_len].tobytes()
     container.verify_crc(header, out)
     clock.mark("assemble")
     return out

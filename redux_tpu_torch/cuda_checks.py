@@ -18,14 +18,16 @@ import time
 import numpy as np
 import torch
 
-from . import api, native, oracle
+from . import api, container, native, oracle
 from .convert import init_cum_from_numpy
+from .errors import ReduxError
 from .models.base import Model
 from .ops import coder
 from .ops.bitpack import streams_to_words, words_to_streams
 from .ops.decode import decode_blocks, decode_blocks_plain
+from .ops.coder import words_to_bytes
 from .ops.encode import (encode_blocks, encode_blocks_fused, encode_blocks_fused_plain,
-                         encode_blocks_plain)
+                         encode_blocks_plain, encode_blocks_ranked)
 from .ops.encode_m import encode_blocks_m, encode_blocks_m_plain
 from .ops.generic import (TorchModel, decode_blocks_generic, dense_torch_model,
                           encode_blocks_generic, make_generic_coders, static_torch_model)
@@ -309,6 +311,111 @@ def compare_kernels(x: KernelInputs, time_plain: bool = True, reps: int = 3,
     out["raw_blocks"] = int(raw.sum())
     out["k2_triple"] = coded
     out["k3_syms"] = syms
+    return out
+
+
+def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
+    """Hold lane chunks of ``archive`` to the plain versions: each of
+    ``chunks`` (indices of ``api.encode``'s chunks of ``data``) is
+    re-encoded with the archive's own initial row and word capacity in one
+    ``encode_blocks_ranked`` launch (K1 -> K2, as ``encode`` ran it) and by
+    ``model_lohi_plain`` -> ``encode_blocks_plain``.  The two must agree,
+    and the archive must store the same blocks raw and each coded block's
+    stream byte for byte.  Then K3 and ``decode_blocks_plain`` decode the
+    archive's streams of those blocks, staged and sorted by length as
+    ``decode`` stages them: they must agree and give back the blocks.
+    Returns ``(first block, blocks, raw blocks, plain ms)`` a chunk, the
+    plain versions' ms keyed by kernel (CUDA events; None off the card)."""
+    device = torch.device(device)
+    timed = device.type == "cuda"
+    header, _ = container.parse_archive(archive, with_streams=False)
+    p, k, d = header.params, header.block_size, header.delta
+    ic = api._init_cum(p, header.prior_extra)
+    arch_u8, src = np.frombuffer(archive, np.uint8), np.frombuffer(data, np.uint8)
+    lens = api._block_lens(len(data), k)
+    lanes = api._decode_lanes(header)
+    chunk = api._lane_chunk(api.ENC_CHUNK_BYTES, k)
+    out = []
+    for c in chunks:
+        s0, s1 = c * chunk, min((c + 1) * chunk, lens.size)
+        x = KernelInputs.of_blocks(api._block_rows(src, s0, s1, k), lens[s0:s1], ic, p, d, device)
+        mine = encode_blocks_ranked(x.syms, x.lens, x.init_cum, p, x.n_words, d)
+        (lo, hi), ms_model = plain_run(
+            lambda: model_lohi_plain(x.syms, x.lens, x.init_cum, p, d), timed)
+        plain, ms_enc = plain_run(
+            lambda: encode_blocks_plain(lo, hi, x.lens, x.init_total, p, x.n_words, d), timed)
+        del lo, hi
+        _require_rows(triple_rows(mine, plain, x.n_words),
+                      f"chunk {c}: K1 -> K2 differs from the plain versions")
+        del mine
+        words, bl, ovf = plain
+        raw_c = (ovf | (bl >= x.lens)).cpu().numpy()
+        _require(np.array_equal(raw_c, lanes.raw[s0:s1]), f"chunk {c}: other blocks stored raw")
+        bl = bl.cpu().numpy()
+        coded = np.flatnonzero(~raw_c)
+        _require(np.array_equal(bl[coded], lanes.coded_lens[s0:s1][coded]),
+                 f"chunk {c}: stream lengths differ from the archive's")
+        byts = words_to_bytes(words).cpu().numpy()[coded]
+        del words, plain
+        keep = np.arange(byts.shape[1])[None, :] < bl[coded][:, None]
+        stored = api._slice_rows(arch_u8, header.stream_offs[s0:s1][coded],
+                                 bl[coded].astype(np.int64), byts.shape[1])
+        _require(np.array_equal(np.where(keep, byts, 0), stored),
+                 f"chunk {c}: streams differ from the archive's")
+        del byts, keep, stored
+
+        sel = s0 + np.argsort(lanes.coded_lens[s0:s1], kind="stable")
+        staged, klens = api._stage_lanes(arch_u8, header, lanes, sel, device)
+        syms = decode_blocks(staged, klens, x.init_cum, p, k, d)
+        syms_p, ms_dec = plain_run(
+            lambda: decode_blocks_plain(staged, klens, x.init_cum, p, k, d), timed)
+        _require_rows((syms != syms_p).any(1), f"chunk {c}: K3 differs from its plain version")
+        valid = torch.arange(k, device=device)[None, :] < klens[:, None]
+        want = x.syms[torch.from_numpy(sel - s0).to(device)]
+        _require_rows(((syms_p != want) & valid).any(1), f"chunk {c}: K3 lost the input")
+        out.append((s0, s1 - s0, int(raw_c.sum()),
+                    {"model_values": ms_model, "encode": ms_enc, "decode": ms_dec}))
+    return out
+
+
+def corruptions(archive: bytes):
+    """The corrupted archives of the reference's container fuzz
+    (``tests/test_fuzz_container.py``) as ``(kind, bytes)``: every
+    truncation of the first 64 bytes and every 97th past them; bits 0, 3
+    and 7 flipped in each of the first 64 bytes and at 120 random
+    positions; random garbage, bare and after the magic."""
+    for n in [*range(64), *range(64, len(archive), 97)]:
+        yield "truncation", archive[:n]
+    rng = np.random.default_rng(11)
+    buf = np.frombuffer(archive, dtype=np.uint8)
+    for pos in [*range(min(64, len(archive))),
+                *rng.integers(0, len(archive), 120).tolist()]:
+        for bit in (0, 3, 7):
+            c = buf.copy()
+            c[pos] ^= 1 << bit
+            yield "bit flip", c.tobytes()
+    rng = np.random.default_rng(13)
+    for n in (0, 1, 4, 31, 32, 33, 200):
+        yield "garbage", rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    yield "garbage", b"RXT1" + rng.integers(0, 256, 100, dtype=np.uint8).tobytes()
+
+
+def corruption_sweep(data: bytes, archive: bytes, device) -> dict:
+    """``api.decode`` of every archive of :func:`corruptions` on ``device``:
+    each must raise a ReduxError or give back ``data`` exactly.  Returns
+    ``{kind: {"raised": n, "exact": m}}``; wrong bytes raise
+    AssertionError, and any other exception (a CUDA error too) propagates."""
+    out = {}
+    for kind, bad in corruptions(archive):
+        try:
+            got = api.decode(bad, device=device)
+        except ReduxError:
+            outcome = "raised"
+        else:
+            _require(got == data, f"{kind}: a corrupted archive decoded to wrong bytes")
+            outcome = "exact"
+        counts = out.setdefault(kind, {"raised": 0, "exact": 0})
+        counts[outcome] += 1
     return out
 
 

@@ -27,6 +27,7 @@ def test_run_device_benchmark_on_the_cpu():
     # No kernel launches on the CPU, and no card numbers.
     assert res["kernels"] == [] and res["roofline"] is None
     assert res["h2d_pageable_gbps"] is None and res["h2d_pinned_gbps"] is None
+    assert res["peak_device_bytes"] is None
 
 
 def test_module_entry_prints_one_json_line(capsys):

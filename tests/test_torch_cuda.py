@@ -341,3 +341,40 @@ def test_fuzz_trial_at_the_53_bit_edge(cuda_device, seed, index, cfg, cls):
     assert trial.cfg == cfg
     res = fuzz.run_trial(trial, cuda_device)
     assert res["class"] == cls and res["route_chunks"] is not None, res
+
+
+@pytest.mark.cuda
+def test_nine_lane_chunks_on_the_card(cuda_device, monkeypatch):
+    """Phase 11 (a) at 4 MiB: with the chunks cut to 128 blocks of 4 KiB,
+    1,040 blocks take nine launches each of K1, K2 and K3 (the last of 16
+    blocks); the archive is the one-chunk archive, its streams those of one
+    launch over a chunk, and decode round-trips."""
+    import redux_tpu_torch
+    from redux_tpu_torch import api, cuda_checks, testdata
+
+    data = testdata.mixed(1039 * 4096 + 100, 16)
+    one_chunk = api.encode(data, block_size=4096, device=cuda_device)
+    monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * 4096)
+    monkeypatch.setattr(api, "DEC_CHUNK_BYTES", 128 * 4096)
+    redux_tpu_torch.reset_launch_counts()
+    arch = api.encode(data, block_size=4096, device=cuda_device)
+    assert api.decode(arch, device=cuda_device) == data
+    counts = redux_tpu_torch.launch_counts()
+    assert (counts["model_values"], counts["encode"], counts["decode"]) == (9, 9, 9), counts
+    assert arch == one_chunk
+    chunks = cuda_checks.check_chunk_streams(data, arch, cuda_device, [4, 8])
+    assert [c[:2] for c in chunks] == [(512, 128), (1024, 16)]
+
+
+@pytest.mark.cuda
+def test_corruption_sweep_on_the_card(cuda_device):
+    """Phase 11 (d) on a 64 KiB archive: every corrupted archive raises a
+    ReduxError or gives back the input, through K3 on the card."""
+    from redux_tpu_torch import api, cuda_checks, testdata
+
+    data = testdata.text_like(64 << 10, 17)
+    sweep = cuda_checks.corruption_sweep(data, api.encode(data, device=cuda_device),
+                                         cuda_device)
+    assert sweep["truncation"]["exact"] == sweep["garbage"]["exact"] == 0
+    assert sweep["bit flip"]["raised"] > 0
+    assert api.decode(api.encode(data, device=cuda_device), device=cuda_device) == data
