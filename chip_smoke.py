@@ -4,10 +4,13 @@
 
 Builds the CUDA kernels from ``redux_tpu_torch/csrc/``, checks each
 against its plain PyTorch version on the card (and the fused K4 and the
-model-in-kernel K5 against K2's streams), checks the golden archives of
-``tests/golden_torch/``, then drives ``redux_tpu_torch.api.encode`` ->
-``decode`` over 64 MiB of generated data three ways: the default route
-(K1 -> K2, K3), the fused route (``REDUX_TPU_ENC_FUSED=1``: K4), and
+model-in-kernel K5 against K2's streams; the staging kernels S1-S3 also
+against zlib's crc32, K2's words and the archive's payload), checks the
+golden archives of ``tests/golden_torch/``, then drives
+``redux_tpu_torch.api.encode`` -> ``decode`` over 64 MiB of generated
+data three ways: the default route (K1 -> K2, K3, with S1 row gather, S2
+payload splice and S3 crc32 around them: the data crosses the bus once
+each way), the fused route (``REDUX_TPU_ENC_FUSED=1``: K4), and
 sharded over a device list (``data_parallel_mesh()`` and two shards on
 one card), plus the sharded K5 entry at the main path's shapes.  Each
 route's archive must equal the default route's, each round trip must be
@@ -29,15 +32,17 @@ against their plain versions and the native serial coder, the ``api``
 route over several lane chunks and the generic coders.  Phase 11 runs at
 multi-GB size: 2 GiB + 1 MiB of ``testdata.mixed`` through ``api.encode``
 -> ``decode`` (nine lane chunks each way, one launch each of K1, K2 and K3
-a chunk, two chunks held to the plain versions), the bench on 256 MiB of
+a chunk, two chunks held to the plain versions, S1-S3 held to theirs on
+one 65,536-lane chunk), the bench on 256 MiB of
 ``text_like`` and on the first 1 GiB of the big input, the CLI over 512
 MiB (two chunks each way at (8,30,32), one held to the plain versions),
 and the container corruption sweep through K3, then phase 5's round trip
 again.  Phases print one
 line each; the line
 before the last is the kernels' JSON summary (each kernel's time at the
-main shapes beside its bound, ``cuda_checks.kernel_bounds``; no single
-PyTorch call computes any of them, so ``library_ms`` is null) and the
+main shapes beside its bound, ``cuda_checks.kernel_bounds`` and
+``compare_staging``; no single PyTorch call computes any of them, so
+``library_ms`` is null) and the
 last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero and prints no result; so does a machine without CUDA.
 """
@@ -57,7 +62,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 MAIN_BYTES = 64 << 20
 SEED = 2024
-MAIN_PATH = ("model_values", "encode", "decode")  # kernels of the default route
+# Kernels of the default route: K1 -> K2, K3, and the staging kernels around them.
+MAIN_PATH = ("model_values", "encode", "decode", "gather_rows", "splice_payload", "crc32")
 # Phase 10's campaign: a fixed seed, bounded by trials and by wall clock.
 FUZZ_SEED, FUZZ_TRIALS, FUZZ_MINUTES = 17, 200, 1.25
 # Phase 11, at size: past 2**31 bytes (where an int32 byte offset would
@@ -126,6 +132,13 @@ def _cli(argv, dev):
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+def _coders(counts):
+    """The launch counts of K1-K5 alone (the staging kernels S1-S3 left out)."""
+    from redux_tpu_torch import cuda_checks
+
+    return {k: counts[k] for k in cuda_checks.KERNELS}
 
 
 def phase8(dev, data, native_build_s, small_bytes=256 << 10, redux_bytes=1 << 20):
@@ -200,8 +213,8 @@ def phase8(dev, data, native_build_s, small_bytes=256 << 10, redux_bytes=1 << 20
         if back != data:
             raise AssertionError("auto: round trip is not byte-equal")
         want = {"model_values": 3, "encode": 3, "decode": 1, "encode_fused": 0, "encode_m": 0}
-        if counts != want:
-            raise AssertionError(f"auto: launches {counts}, want {want}")
+        if _coders(counts) != want or not all(counts[k] for k in cuda_checks.STAGING):
+            raise AssertionError(f"auto: launches {counts}, want {want} and S1-S3")
         cands = {
             "prior": api.encode(data, use_prior=True, device=dev),
             "no prior": api.encode(data, use_prior=False, device=dev),
@@ -383,7 +396,7 @@ def _at_size(dev, data):
     wall clock, host phases, peak device memory and the rise of the peak
     host RSS each way."""
     import redux_tpu_torch
-    from redux_tpu_torch import api
+    from redux_tpu_torch import api, container
 
     k = api._default_block_size(len(data))
     n_blocks = -(-len(data) // k)
@@ -409,10 +422,16 @@ def _at_size(dev, data):
     if back != data:
         raise AssertionError("at size: round trip is not byte-equal")
     del back
-    want_enc = dict.fromkeys(counts, 0) | {"model_values": n_enc, "encode": n_enc}
-    if enc_counts != want_enc or counts != want_enc | {"decode": n_dec}:
+    # Encode: K1, K2, S2 and S3 once a chunk.  Decode: K3 and S1 (words)
+    # once a chunk, S1 (bytes) once a chunk of raw blocks, S3 once.
+    n_raw = sum(container.parse_archive(arch, with_streams=False)[0].block_raw)
+    want_enc = dict.fromkeys(counts, 0) | {"model_values": n_enc, "encode": n_enc,
+                                           "splice_payload": n_enc, "crc32": n_enc}
+    want_dec = want_enc | {"decode": n_dec, "gather_rows": n_dec + -(-n_raw // dec_chunk),
+                           "crc32": n_enc + 1}
+    if enc_counts != want_enc or counts != want_dec:
         raise AssertionError(f"at size: launches {enc_counts} after encode, {counts} after "
-                             f"decode; want {n_enc} K1 and K2, {n_dec} K3")
+                             f"decode; want {want_enc}, then {want_dec}")
     gib = len(data) / (1 << 30)
     print(f"at size: {len(data)} bytes ({gib:.6f} GiB), {n_blocks} blocks of {k}, {n_enc} "
           f"encode chunks of <= {enc_chunk} blocks, {n_dec} decode chunks of <= {dec_chunk}; "
@@ -442,6 +461,23 @@ def _check_chunks(what, data, arch, dev, chunks):
               + json.dumps({k: round(v, 3) for k, v in plain_ms.items()}))
     _sync(dev)
     print(f"{what}: chunk checks {time.perf_counter() - t0:.3f} s")
+
+
+def _print_staging(what, res):
+    """One line a staging kernel of ``cuda_checks.compare_staging``'s result."""
+    for k in ("gather_rows", "splice_payload", "crc32"):
+        r = res[k]
+        ms = f"{r['ms']:.4f} ms" if r["ms"] is not None else "not timed"
+        if r.get("ms_bytes") is not None:
+            ms += f" (words; bytes {r['ms_bytes']:.4f} ms on {res['raw_rows']} raw rows)"
+        if r["ms_call"] is not None:
+            ms += f", {r['ms_call']:.4f} ms a call with its checks"
+        plain = f"{r['plain_ms']:.3f} ms" if r["plain_ms"] is not None else "not timed"
+        print(f"{what} {k}: equal (max |diff| {r['max_abs_err']}), kernel {ms}, plain {plain}, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} bytes, {r['ops']} "
+              f"int32 ops)")
+    print(f"{what}: {res['raw_rows']} raw blocks, crc32 also equal to zlib.crc32 at 0, 1, "
+          "1023, 1024, 1025 and 5123 bytes")
 
 
 def phase11(dev):
@@ -475,8 +511,13 @@ def phase11(dev):
           f"thread); peak host RSS {rss0:.3f} GiB "
           f"before, {_peak_rss_gib():.3f} GiB after")
 
-    # (a) The main path at size.
+    # (a) The main path at size; S1-S3 on one 65,536-lane chunk of its input.
     _at_size(dev, big)
+    t0 = time.perf_counter()
+    chunk_bytes = api._lane_chunk(api.ENC_CHUNK_BYTES, 4096) * 4096
+    _print_staging(f"at size, one chunk of {chunk_bytes} bytes",
+                   cuda_checks.compare_staging(big[:chunk_bytes], dev))
+    print(f"at size: staging check {time.perf_counter() - t0:.3f} s")
 
     # (b) The bench at two sizes.
     for name, whole, n in ((f"text_like {BENCH_BYTES[0]}", text, BENCH_BYTES[0]),
@@ -514,8 +555,10 @@ def phase11(dev):
             _sync(dev)
             dt = time.perf_counter() - t0
             counts = redux_tpu_torch.launch_counts()
-            if counts != dict.fromkeys(counts, 0) | want:
-                raise AssertionError(f"cli {mode}: launches {counts}, want {want}")
+            staged = ("splice_payload", "crc32") if mode == "compress" else ("gather_rows", "crc32")
+            if (_coders(counts) != dict.fromkeys(cuda_checks.KERNELS, 0) | want
+                    or not all(counts[s] for s in staged)):
+                raise AssertionError(f"cli {mode}: launches {counts}, want {want} and {staged}")
             print(f"cli at size {mode}: {dt:.3f} s wall clock with file I/O, {line!r}, "
                   f"launches {json.dumps(counts)}")
         if not filecmp.cmp(src, back_f, shallow=False):
@@ -610,6 +653,10 @@ def main() -> int:
                   f"kernel {r[k]['ms']:.3f} ms, plain "
                   + (f"{plain:.3f} ms" if plain is not None else "not timed"))
         print(f"kernels[{case}]: {r['raw_blocks']} blocks stored raw")
+    staging = cuda_checks.check_staging(dev)
+    torch.cuda.synchronize()
+    for case, r in staging.items():
+        _print_staging(f"staging[{case}]", r)
 
     # Phase 4: goldens.
     for fname, fmt, n_in, n_arch in cuda_checks.check_goldens(dev, ROOT / "tests" / "golden_torch"):
@@ -640,9 +687,13 @@ def main() -> int:
         print(f"main-shape {k}: kernel {r['ms']:.3f} ms{extra}, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} bytes, "
               f"{r['ops']} int32 ops) ({n_blocks} x {k_auto}), equal")
+    main_staging = cuda_checks.compare_staging(data, dev)
+    torch.cuda.synchronize()
+    _print_staging(f"main-shape ({n_blocks} x {k_auto})", main_staging)
 
     # Phase 6: the fused route (K4 in place of K1 -> K2) at real size.
-    fused_on = {"model_values": False, "encode": False, "encode_fused": True, "decode": True}
+    fused_on = {"model_values": False, "encode": False, "encode_fused": True, "decode": True,
+                **dict.fromkeys(cuda_checks.STAGING, True)}
     os.environ["REDUX_TPU_ENC_FUSED"] = "1"
     try:
         _, fused_launches = _route("fused", data, arch, dev, fused_on)
@@ -689,15 +740,17 @@ def main() -> int:
     _route("after the sweep", data, arch, dev, main_on)
 
     kernels = []
-    for k, (source, replaces) in cuda_checks.KERNELS.items():
-        err = max(main_res[k]["max_abs_err"], *(r[k]["max_abs_err"] for r in res.values()))
-        r = main_res[k]
-        kernels.append({
-            "name": k, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path_launches[k], "max_abs_err": err,
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "bound": r["bound"], "library_ms": None,
-        })
+    for table, main_r, checks in ((cuda_checks.KERNELS, main_res, res),
+                                  (cuda_checks.STAGING, main_staging, staging)):
+        for k, (source, replaces) in table.items():
+            err = max(main_r[k]["max_abs_err"], *(r[k]["max_abs_err"] for r in checks.values()))
+            r = main_r[k]
+            kernels.append({
+                "name": k, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": path_launches[k], "max_abs_err": err,
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "bound": r["bound"], "library_ms": None,
+            })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

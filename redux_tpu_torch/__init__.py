@@ -8,8 +8,11 @@ numpy, never JAX.
 
 ``encode(data)`` / ``decode(archive)`` run on the card by default
 (``device="cuda"``): the kernels K1 model values, K2 coder, K3 decoder, or
-K4, the fused model + coder, under ``REDUX_TPU_ENC_FUSED=1``.  Without a
-CUDA device they raise.  ``device="cpu"`` runs the kernels' plain PyTorch
+K4, the fused model + coder, under ``REDUX_TPU_ENC_FUSED=1``, and the
+staging kernels around them (``ops.staging``: S1 row gather, S2 payload
+splice, S3 crc32): the data crosses the bus once each way (an input of
+several lane chunks twice on its way in).  Without a CUDA device they
+raise.  ``device="cpu"`` runs the kernels' plain PyTorch
 versions, as the tests do; a list of devices shards the blocks over them
 (``redux_tpu_torch.parallel``).  K5 (``ops.encode_m``) is the independent
 model-in-kernel encoder, as in the reference.
@@ -30,6 +33,7 @@ from .ops import decode as _decode_op
 from .ops import encode as _encode_op
 from .ops import encode_m as _encode_m_op
 from .ops import model as _model_op
+from .ops import staging as _staging_op
 from .params import Parameters
 
 __all__ = [
@@ -47,6 +51,9 @@ def launch_counts() -> dict:
         "decode": _decode_op.launches,
         "encode_fused": _encode_op.fused_launches,
         "encode_m": _encode_m_op.launches,
+        "gather_rows": _staging_op.gather_launches,
+        "splice_payload": _staging_op.splice_launches,
+        "crc32": _staging_op.crc_launches,
     }
 
 
@@ -56,3 +63,6 @@ def reset_launch_counts() -> None:
     _decode_op.launches = 0
     _encode_op.fused_launches = 0
     _encode_m_op.launches = 0
+    _staging_op.gather_launches = 0
+    _staging_op.splice_launches = 0
+    _staging_op.crc_launches = 0

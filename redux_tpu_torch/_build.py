@@ -6,7 +6,7 @@ links the objects into one shared library with a plain C interface.
 The library lands in ``build/redux_tpu_torch/`` beside the package, named
 by a hash of the sources and flags, so an edited source rebuilds.  It is
 loaded with ``ctypes``: every pointer and the stream pass as ``c_void_p``,
-ints as ``c_int``, and every C entry returns ``cudaGetLastError()``, on
+ints as ``c_int`` (``c_longlong`` for a byte count), and every C entry returns ``cudaGetLastError()``, on
 which :func:`check` raises.  A failed build or launch raises; nothing
 falls back.
 """
@@ -32,7 +32,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # beside the library (resource_usage).
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> argument types (all return int = cudaError_t).
 SIGNATURES = {
     # syms, lens, init_cum, lo, hi, B, K, delta, freq_max, device, stream
@@ -47,6 +47,13 @@ SIGNATURES = {
     # freq_max, code_bits, device, stream (K4 and K5 take the same)
     "rxt_encode_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "rxt_encode_m": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # buf, n, offs, lens, out, B, width, words, device, stream
+    "rxt_gather_rows": (_P, _L, _P, _P, _P, _I, _I, _I, _I, _P),
+    # words, n_words, blocks, k, lens, byte_lens, raw, offs, out, total, B,
+    # device, stream
+    "rxt_splice_payload": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # buf, n, pow8, out, device, stream
+    "rxt_crc32": (_P, _L, _P, _P, _I, _P),
 }
 
 _lib = None

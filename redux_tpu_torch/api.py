@@ -12,13 +12,24 @@ Counterpart: ``redux_tpu/api.py`` — ``encode`` (:226-398) and ``decode``
 and for decode, the lanes sorted by coded length, the decoder (K3,
 ``ops.decode``), the inverse permutation, the raw splice and the crc.
 
+The data lives on the device between one upload and one fetch: the
+reference staged it on the host for its TPU's sake, the port on the card
+with the staging kernels of ``ops.staging`` (S1 row gather, S2 payload
+splice, S3 crc32) and ``torch.bincount`` for the histogram.  ``encode``
+reads the input in lane chunks twice (histogram and crc, then the
+kernels; an input of one chunk crosses the bus once) and fetches each
+chunk's payload; ``decode`` uploads the archive once and fetches the
+output once.  Only the header, the prior's 256 counts and the lanes'
+order are host work.
+
 The device defaults to the card: ``device="cuda"`` runs the kernels, and
 with no CUDA device a call raises RuntimeError before any kernel work
 instead of running anything else.  The CPU runs the kernels' plain
 PyTorch versions only when the caller asks for it (``device="cpu"``, as
 the tests do).  A sequence of two or more devices shards the blocks over
 them (``parallel.mesh``; the explicit counterpart of the reference's
-``_dp_mesh`` branches, :98-113, :300-316, :483-510).
+``_dp_mesh`` branches, :98-113, :300-316, :483-510): the data stages on
+the first device and the shards move from device to device.
 ``parallel.data_parallel_mesh()`` names every visible GPU.  The archive
 bytes do not depend on the devices.
 
@@ -34,6 +45,7 @@ change ``encode_auto``'s candidates, and so its bytes, silently.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -44,9 +56,10 @@ from .container import DEFAULT_BLOCK_SIZE, DEFAULT_DELTA, DEFAULT_PRIOR_BUDGET
 from .convert import init_cum_from_numpy
 from .errors import InvalidInputError, ReduxError
 from .models.dense import prior_init_cum, quantize_prior, uniform_init_cum
-from .ops.coder import bytes_to_words, max_block_words, words_to_bytes
+from .ops.coder import max_block_words
 from .ops.decode import decode_blocks
 from .ops.encode import encode_blocks_ranked
+from .ops.staging import combine_crcs, crc32, gather_rows, splice_payload
 from .parallel.mesh import (Mesh, data_parallel_mesh, decode_blocks_sharded,
                             encode_blocks_ranked_sharded)
 from .params import Parameters
@@ -57,9 +70,6 @@ LANE_QUANTUM = 1024
 _AUTO_BS_MIN = 1 << 21  # auto block sizing applies to inputs >= 2 MiB
 ENC_CHUNK_BYTES = 256 << 20  # input bytes per encode dispatch
 DEC_CHUNK_BYTES = 256 << 20  # decoded bytes per decode dispatch
-# Bytes a histogram step: NumPy's bincount widens each byte to 8, so the
-# input is counted in segments (128 MiB of transient at most).
-_HIST_SEGMENT = 16 << 20
 
 
 def _static_words(params: Parameters, k: int, delta: int = DEFAULT_DELTA) -> int:
@@ -67,13 +77,26 @@ def _static_words(params: Parameters, k: int, delta: int = DEFAULT_DELTA) -> int
     return max_block_words(max_count, params.symbol_count, params, k)
 
 
-def _block_rows(src: np.ndarray, s0: int, s1: int, block_size: int) -> np.ndarray:
-    """Blocks ``s0 .. s1`` of the uint8 array ``src`` as a fresh
-    ``(s1 - s0, block_size)`` array, zero past the end of ``src``."""
-    part = src[s0 * block_size : s1 * block_size]
-    rows = np.zeros((s1 - s0) * block_size, dtype=np.uint8)
-    rows[: part.size] = part
-    return rows.reshape(s1 - s0, block_size)
+def _host_u8(data) -> torch.Tensor:
+    """A CPU uint8 tensor over the bytes of ``data`` (no copy; read only:
+    nothing writes through it, so torch's warning about a read-only buffer
+    is silenced)."""
+    if len(data) == 0:
+        return torch.empty(0, dtype=torch.uint8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.frombuffer(data, dtype=torch.uint8)
+
+
+def _blocks(data, s0: int, s1: int, block_size: int, device: torch.device) -> torch.Tensor:
+    """Blocks ``s0 .. s1`` of ``data`` as a ``(s1 - s0, block_size)`` uint8
+    tensor on ``device``, zero past the end of ``data``: one copy from
+    ``data``, the last block's tail zeroed on the device."""
+    a, b = s0 * block_size, min(s1 * block_size, len(data))
+    out = torch.empty((s1 - s0) * block_size, dtype=torch.uint8, device=device)
+    out[: b - a].copy_(_host_u8(data)[a:b])
+    out[b - a :].zero_()
+    return out.view(s1 - s0, block_size)
 
 
 def _block_lens(n: int, block_size: int) -> np.ndarray:
@@ -83,13 +106,6 @@ def _block_lens(n: int, block_size: int) -> np.ndarray:
                       ).astype(np.int32)
 
 
-def _split_blocks(data: bytes, block_size: int):
-    """(n_blocks, block_size) uint8 blocks (zero tail) and their lengths."""
-    lens = _block_lens(len(data), block_size)
-    syms = _block_rows(np.frombuffer(data, dtype=np.uint8), 0, lens.size, block_size)
-    return syms, lens, lens.size
-
-
 def _encode_words(params: Parameters, k: int, delta: int) -> int:
     """Per-block output capacity of the encoder.  Blocks whose stream
     reaches their raw size are stored raw, so the buffer never needs the
@@ -97,15 +113,18 @@ def _encode_words(params: Parameters, k: int, delta: int) -> int:
     return min(_static_words(params, k, delta), k // 4 + 16)
 
 
-def _prior_extra(data: bytes, params: Parameters, prior_budget: int) -> Optional[np.ndarray]:
+def _byte_histogram(u8: torch.Tensor) -> torch.Tensor:
+    """(256,) int64 counts of the bytes of a uint8 tensor, on its device
+    (the reference's ``np.bincount``; plain PyTorch on any device)."""
+    return torch.bincount(u8, minlength=256)
+
+
+def _prior_extra(hist: np.ndarray, params: Parameters,
+                 prior_budget: int) -> Optional[np.ndarray]:
     """The warm-start prior (256 extra counts) from the byte histogram, or
-    None for empty input or an all-zero quantization."""
-    if not data:
+    None for an empty input or an all-zero quantization."""
+    if not hist.any():
         return None
-    src = np.frombuffer(data, dtype=np.uint8)
-    hist = np.zeros(256, dtype=np.int64)
-    for s0 in range(0, src.size, _HIST_SEGMENT):
-        hist += np.bincount(src[s0 : s0 + _HIST_SEGMENT], minlength=256)
     extra = quantize_prior(hist, params, min(prior_budget, params.freq_max // 2))[:256]
     return extra if extra.max(initial=0) > 0 else None
 
@@ -138,38 +157,6 @@ def _default_block_size(n: int, lane_quantum: int = LANE_QUANTUM) -> int:
     return _auto_block_size(n, lane_quantum) if n >= _AUTO_BS_MIN else DEFAULT_BLOCK_SIZE
 
 
-def _gather_slices(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
-                   budget: int = 64 << 20) -> np.ndarray:
-    """Concatenate ``buf[starts[i] : starts[i] + lens[i]]`` with a bounded
-    int64 index transient (built in ~``budget``-byte segments)."""
-    lens = lens.astype(np.int64)
-    total = int(lens.sum())
-    out = np.empty(total, dtype=buf.dtype)
-    csum = np.cumsum(lens)
-    cuts = np.searchsorted(csum, np.arange(budget, total, budget))
-    seg = np.concatenate([[0], cuts, [len(lens)]])
-    pos = 0
-    for a, b in zip(seg[:-1], seg[1:]):
-        if a == b:
-            continue
-        ls = lens[a:b]
-        n = int(ls.sum())
-        idx = np.repeat(starts[a:b] - (np.cumsum(ls) - ls), ls) + np.arange(n, dtype=np.int64)
-        out[pos : pos + n] = buf[idx]
-        pos += n
-    return out
-
-
-def _slice_rows(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
-                width: int) -> np.ndarray:
-    """``(len(starts), width)`` uint8 rows, row i ``buf[starts[i] :
-    starts[i] + lens[i]]`` followed by zeros (``lens <= width``)."""
-    rows = np.zeros((len(starts), width), dtype=np.uint8)
-    rows[np.arange(width, dtype=np.int32)[None, :] < lens[:, None]] = \
-        _gather_slices(buf, starts, lens)
-    return rows
-
-
 def _check_config(params: Parameters, block_size: int, delta: int, init_total: int):
     """Reject configs whose adaptation would freeze from the start."""
     if init_total >= params.freq_max:
@@ -182,14 +169,12 @@ Devices = Union[torch.device, str, Sequence[Union[torch.device, str]]]
 
 
 def _placement(device: Devices) -> tuple[torch.device, Optional[Mesh]]:
-    """Where the tensors live and, for two or more devices, the mesh to
-    shard over (the tensors then stay on the host)."""
+    """Where the data stages and, for two or more devices, the mesh to
+    shard over: the data then stages on the mesh's first device."""
     if isinstance(device, (torch.device, str)):
         return torch.device(device), None
     mesh = data_parallel_mesh(device)
-    if len(mesh) == 1:
-        return mesh[0], None
-    return torch.device("cpu"), mesh
+    return mesh[0], (mesh if len(mesh) > 1 else None)
 
 
 def _require_cuda(device: torch.device) -> None:
@@ -202,13 +187,18 @@ def _require_cuda(device: torch.device) -> None:
 
 
 class _Clock:
-    """Host wall time per phase into ``timings`` (seconds, accumulated)."""
+    """Wall time per phase into ``timings`` (seconds, accumulated).  With
+    ``timings`` given, each mark first waits for the CUDA devices of
+    ``devices``, so a phase holds the device work it queued."""
 
-    def __init__(self, timings: Optional[dict]):
+    def __init__(self, timings: Optional[dict], devices: Sequence[torch.device] = ()):
         self.tt = timings if timings is not None else {}
+        self.wait = [d for d in devices if d.type == "cuda"] if timings is not None else []
         self.t0 = time.perf_counter()
 
     def mark(self, name: str) -> None:
+        for d in self.wait:
+            torch.cuda.synchronize(d)
         now = time.perf_counter()
         self.tt[name] = self.tt.get(name, 0.0) + (now - self.t0)
         self.t0 = now
@@ -234,9 +224,13 @@ def encode(
     :func:`_auto_block_size`).  ``device`` (default ``"cuda"``) runs the
     kernels; ``device="cpu"`` runs their plain versions; a sequence of
     devices shards the blocks over them.
+
+    ``_timings`` receives the wall time of each phase: ``pass1`` (each
+    chunk's upload, histogram and crc), ``pass2`` (each chunk's upload,
+    K1 -> K2, the payload splice and its fetch) and ``header``.
     """
-    clock = _Clock(_timings)
     device, mesh = _placement(device)
+    clock = _Clock(_timings, mesh or [device])
     params = params or Parameters.tpu_wide()
     if block_size is None:
         block_size = _default_block_size(len(data), lane_quantum)
@@ -244,70 +238,71 @@ def encode(
         raise InvalidInputError("the RXT container is byte-only (symbol_bits = 8)")
     if use_prior is None:
         use_prior = len(data) >= 4096
-    prior_extra = _prior_extra(data, params, prior_budget) if use_prior else None
+    # The parameters' own limits before the device's (the prior's total is
+    # checked once pass 1 has counted the bytes).
+    _check_config(params, block_size, delta, int(uniform_init_cum(params)[-1]))
+    _require_cuda(device)
+    n, k = len(data), block_size
+    lens = _block_lens(n, k)
+    n_blocks = lens.size
+    chunk = _lane_chunk(ENC_CHUNK_BYTES, k)
+
+    # Pass 1, a lane chunk at a time: the histogram and the chunk's crc on
+    # the device.  An input of one chunk keeps its blocks for pass 2.
+    hist = torch.zeros(256, dtype=torch.int64, device=device)
+    crcs, after, kept = [], [], None
+    for s0 in range(0, n_blocks, chunk):
+        s1 = min(s0 + chunk, n_blocks)
+        blocks = _blocks(data, s0, s1, k, device)
+        flat = blocks.view(-1)[: min(s1 * k, n) - s0 * k]
+        if use_prior:
+            hist += _byte_histogram(flat)
+        crcs.append(crc32(flat))
+        after.append(max(n - s1 * k, 0))
+        if n_blocks <= chunk:
+            kept = blocks
+    crc = combine_crcs(torch.tensor(crcs, dtype=torch.int64), torch.tensor(after))
+    prior_extra = _prior_extra(hist.cpu().numpy(), params, prior_budget) if use_prior else None
     ic = _init_cum(params, prior_extra)
     _check_config(params, block_size, delta, int(ic[-1]))
-    _require_cuda(device)
-    crc = container.compute_crc(data)
-    clock.mark("prior+crc")
+    clock.mark("pass1")
 
-    if len(data) == 0:
+    if n == 0:
         return container.build_archive(params, block_size, 0, [], prior_extra, delta, crc)
 
-    src = np.frombuffer(data, dtype=np.uint8)
-    k = block_size
-    lens = _block_lens(len(data), k)
-    n_blocks = lens.size
+    # Pass 2, a lane chunk at a time: K1 -> K2 on the chunk's blocks, the
+    # raw rule, the payload spliced on the device and fetched, and the
+    # wire lengths and raw flags for the header.
     n_words = _encode_words(params, k, delta)
     ic_t = init_cum_from_numpy(ic, params, device)
-    clock.mark("split")
-
-    # One lane chunk at a time: its blocks, the kernels, and its slice of
-    # the payload (coded streams and raw blocks in block order), so the
-    # host's transients are a chunk's whatever the input's size.
-    chunk = _lane_chunk(ENC_CHUNK_BYTES, k)
     pieces, wire_parts, raw_parts = [], [], []
     for s0 in range(0, n_blocks, chunk):
         s1 = min(s0 + chunk, n_blocks)
-        rows = _block_rows(src, s0, s1, k)
-        syms_t = torch.from_numpy(rows).to(device)
+        blocks = kept if kept is not None else _blocks(data, s0, s1, k, device)
         lens_t = torch.from_numpy(lens[s0:s1]).to(device)
         if mesh is None:
-            words, bl, ov = encode_blocks_ranked(syms_t, lens_t, ic_t, params, n_words, delta)
+            words, bl, ov = encode_blocks_ranked(blocks, lens_t, ic_t, params, n_words, delta)
         else:
             words, bl, ov = encode_blocks_ranked_sharded(
-                syms_t, lens_t, ic_t, params, n_words, mesh, delta)
-        bl_i = bl.cpu().numpy()
-        ov_i = ov.cpu().numpy()
-        wcap = min(max(1, -(-int(bl_i.max(initial=1)) // 4)), n_words)
-        byts_i = words_to_bytes(words[:, :wcap]).cpu().numpy()
-        del syms_t, words  # on the CPU syms_t is ``rows``, rewritten below
+                blocks, lens_t, ic_t, params, n_words, mesh, delta)
         # Stored raw: overflowed blocks and any block not smaller coded.
-        raw_i = ov_i | (bl_i >= lens[s0:s1])
-        if int(bl_i.max(initial=0)) > 4 * n_words and not bool(
-            raw_i[bl_i > 4 * n_words].all()
-        ):
-            raise InvalidInputError()  # buffer bound violated: never silent
-        # Each coded block's row takes its stream (shorter than the block);
-        # a raw block's row keeps its bytes.  The wire bytes are each row's
-        # first wire_len bytes.
-        coded = np.flatnonzero(~raw_i)
-        width = min(k, byts_i.shape[1])
-        rows[coded, :width] = byts_i[coded, :width]
-        wire_i = np.where(raw_i, lens[s0:s1], bl_i)
-        pieces.append(rows[np.arange(k, dtype=np.int32)[None, :] < wire_i[:, None]])
-        wire_parts.append(wire_i)
-        raw_parts.append(raw_i)
-    clock.mark("kernel+fetch")
+        raw = ov | (bl >= lens_t)
+        wire = torch.where(raw, lens_t, bl).to(torch.int64)
+        head = torch.stack([wire, raw.to(torch.int64)]).cpu().numpy()
+        payload = splice_payload(words, blocks, lens_t, bl, raw, torch.cumsum(wire, 0) - wire,
+                                 int(head[0].sum()))
+        pieces.append(payload.cpu().numpy())
+        wire_parts.append(head[0])
+        raw_parts.append(head[1].astype(bool))
+        del blocks, words, payload
+    clock.mark("pass2")
 
-    payload = b"".join(pieces)
-    del pieces
     out = container.build_archive(
-        params, block_size, len(data), [], prior_extra, delta, crc,
-        np.concatenate(raw_parts).tolist(), payload=payload,
-        stream_lens=np.concatenate(wire_parts).astype(np.int64).tolist(),
+        params, block_size, n, [], prior_extra, delta, crc,
+        np.concatenate(raw_parts).tolist(), payload=b"".join(pieces),
+        stream_lens=np.concatenate(wire_parts).tolist(),
     )
-    clock.mark("splice")
+    clock.mark("header")
     return out
 
 
@@ -339,19 +334,21 @@ def _decode_lanes(header) -> _Lanes:
     return _Lanes(raw, block_lens, coded_lens, np.argsort(coded_lens, kind="stable"))
 
 
-def _stage_lanes(arch_u8: np.ndarray, header, lanes: _Lanes, sel: np.ndarray,
-                 device: torch.device):
-    """K3's input for the lanes ``sel`` of the archive ``arch_u8``: their
-    streams as a ``(len(sel), wcap)`` word matrix on ``device``, zero past
-    each stream and for two words past the longest (reads past a stream's
-    terminator see zero bits; the kernel also bounds-checks its row), and
-    their symbol counts, 0 for a raw block."""
+def _stage_lanes(arch: torch.Tensor, header, lanes: _Lanes, sel: np.ndarray):
+    """K3's input for the lanes ``sel`` of the archive ``arch`` (a uint8
+    tensor; S1 on its device): their streams as a ``(len(sel), wcap)``
+    word matrix, zero past each stream and for two words past the longest
+    (reads past a stream's terminator see zero bits; the kernel also
+    bounds-checks its row), and their int32 symbol counts, 0 for a raw
+    block."""
+    dev = arch.device
     n_words = _static_words(header.params, header.block_size, header.delta)
     lens_o = lanes.coded_lens[sel]
     wcap = min(max(4, -(-int(lens_o.max(initial=0)) // 4) + 2), n_words + 2)
-    byts = _slice_rows(arch_u8, header.stream_offs[sel], lens_o, wcap * 4)
+    words = gather_rows(arch, torch.from_numpy(header.stream_offs[sel]).to(dev),
+                        torch.from_numpy(lens_o).to(dev), wcap, words=True)
     klens = np.where(lanes.raw[sel], 0, lanes.block_lens[sel]).astype(np.int32)
-    return bytes_to_words(torch.from_numpy(byts).to(device)), torch.from_numpy(klens).to(device)
+    return words, torch.from_numpy(klens).to(dev)
 
 
 def decode(archive: bytes, *, device: Devices = "cuda",
@@ -362,9 +359,14 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     corruption instead of returning garbage.  ``device`` (default
     ``"cuda"``) runs the kernel; ``device="cpu"`` runs its plain version; a
     sequence of devices shards the blocks over them.
+
+    ``_timings`` receives the wall time of each phase: ``parse`` (the
+    header and the lanes' order), ``upload`` (the archive), ``kernels``
+    (per lane chunk S1 -> K3 into the output rows, then the raw blocks'
+    rows) and ``crc+fetch``.
     """
-    clock = _Clock(_timings)
     device, mesh = _placement(device)
+    clock = _Clock(_timings, mesh or [device])
     header, _ = container.parse_archive(archive, with_streams=False)
     params = header.params
     _require_cuda(device)
@@ -374,37 +376,45 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     ic = _init_cum(params, header.prior_extra)
     n_blocks = header.n_blocks
     k = header.block_size
-    arch_u8 = np.frombuffer(archive, dtype=np.uint8)
     lanes = _decode_lanes(header)
     ic_t = init_cum_from_numpy(ic, params, device)
     clock.mark("parse")
+    arch = _host_u8(archive).to(device)  # one pageable copy to a card
+    clock.mark("upload")
 
     # Each chunk of lanes decodes straight into its blocks' rows; a raw
     # block's row is its stored bytes.  Every row is written once.
     chunk = _lane_chunk(DEC_CHUNK_BYTES, k)
-    syms_u8 = np.empty((n_blocks, k), dtype=np.uint8)
+    out = torch.empty(n_blocks, k, dtype=torch.uint8, device=device)
     for s0 in range(0, n_blocks, chunk):
         sel = lanes.order[s0 : s0 + chunk]
+        rows = torch.from_numpy(sel).to(device)
         if lanes.coded_lens[sel].max(initial=0) == 0:  # all-raw slab: no kernel work
-            syms_u8[sel] = 0
+            out.index_fill_(0, rows, 0)
             continue
-        words, klens = _stage_lanes(arch_u8, header, lanes, sel, device)
+        words, klens = _stage_lanes(arch, header, lanes, sel)
         if mesh is None:
-            out = decode_blocks(words, klens, ic_t, params, k, header.delta)
+            syms = decode_blocks(words, klens, ic_t, params, k, header.delta)
         else:
-            out = decode_blocks_sharded(words, klens, ic_t, params, k, mesh, header.delta)
-        syms_u8[sel] = out.cpu().numpy()
-    clock.mark("stage+kernel+fetch")
-
+            syms = decode_blocks_sharded(words, klens, ic_t, params, k, mesh, header.delta)
+        out.index_copy_(0, rows, syms)
+        del words, syms
     ri = np.flatnonzero(lanes.raw)
     for s0 in range(0, ri.size, chunk):
         r = ri[s0 : s0 + chunk]
-        syms_u8[r] = _slice_rows(arch_u8, header.stream_offs[r],
-                                 lanes.block_lens[r].astype(np.int64), k)
-    out = syms_u8.reshape(-1)[: header.orig_len].tobytes()
-    container.verify_crc(header, out)
-    clock.mark("assemble")
-    return out
+        rows = torch.from_numpy(r).to(device)
+        out.index_copy_(0, rows, gather_rows(
+            arch, torch.from_numpy(header.stream_offs[r]).to(device),
+            torch.from_numpy(lanes.block_lens[r].astype(np.int64)).to(device), k))
+    del arch
+    clock.mark("kernels")
+
+    flat = out.view(-1)[: header.orig_len]
+    if crc32(flat) != header.crc32:
+        raise InvalidInputError()
+    res = flat.cpu().numpy().tobytes()
+    clock.mark("crc+fetch")
+    return res
 
 
 def encode_compact(data: bytes, cfg: int) -> bytes:

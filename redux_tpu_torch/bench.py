@@ -6,10 +6,11 @@ delta 16, the warm-start prior and the auto block size; the blocks and the
 compressed words resident on the device; encode through
 ``ops.encode.encode_blocks_ranked`` (K1 -> K2, or K4 under
 ``REDUX_TPU_ENC_FUSED``); decode through K3 on the ``(B, W)`` word matrix
-that ``api.decode`` stages from the archive (``api._stage_lanes``, all
-lanes in one launch); the round trip verified on the host on every run,
-with the timed encode's streams equal to the archive's; ``api.encode`` /
-``decode`` wall times after one warm-up.
+that ``api.decode`` stages from the archive (``api._stage_lanes``: S1 on
+the card, all lanes in one launch); the round trip verified on the host
+on every run, with the timed encode's streams equal to the archive's;
+``api.encode`` / ``decode`` wall times after one warm-up; ``kernels``
+names what the timed stages launched.
 
 Kernel stages are timed with CUDA events around each iteration (median of
 ``iters``, every iteration's time kept as the spread).  Every stage
@@ -48,6 +49,7 @@ from .ops.coder import words_to_bytes
 from .ops.decode import decode_blocks
 from .ops.encode import encode_blocks, encode_blocks_fused, encode_blocks_ranked, fused_selected
 from .ops.model import model_lohi
+from .ops.staging import gather_rows
 from .params import Parameters
 
 DELTA = container.DEFAULT_DELTA
@@ -119,35 +121,39 @@ def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10, *,
     _sync(dev)
     counts0 = launch_counts()
     enc_ms = _times_ms(encode_step, iters, dev)
+    counts1 = launch_counts()
 
     # K3's input: the archive's streams, staged by api.decode's own helper
-    # (this api.encode, with the prior as the stages have it at every size,
-    # is also the end-to-end warm-up).
+    # (S1 on the card; this api.encode, with the prior as the stages have
+    # it at every size, is also the end-to-end warm-up).
     archive = api.encode(data, params=params, block_size=k, delta=DELTA, use_prior=True,
                          device=dev)
     header, _ = container.parse_archive(archive, with_streams=False)
     lanes = api._decode_lanes(header)
-    arch_u8 = np.frombuffer(archive, np.uint8)
-    staged, klens_o = api._stage_lanes(arch_u8, header, lanes, lanes.order, dev)
+    staged, klens_o = api._stage_lanes(api._host_u8(archive).to(dev), header, lanes, lanes.order)
 
     def decode_step():
         return decode_blocks(staged, klens_o, x.init_cum, params, k, DELTA)
 
     decoded = decode_step()  # warm-up
+    _sync(dev)
+    counts2 = launch_counts()
     dec_ms = _times_ms(decode_step, iters, dev)
-    counts1 = launch_counts()
+    counts3 = launch_counts()
 
     # Verification on the host (untimed): the timed encode's streams are
     # the archive's, and the decode gives back the input, raw blocks
     # spliced from the source.
     raw = (ovf | (byte_lens >= x.lens)).cpu().numpy()
-    enc_bytes = words_to_bytes(words).cpu().numpy()
-    in_stream = np.arange(enc_bytes.shape[1])[None, :] < lanes.coded_lens[:, None]
+    enc_bytes = torch.from_numpy(words_to_bytes(words).cpu().numpy())
     coded = np.flatnonzero(~lanes.raw)
+    coded_lens = torch.from_numpy(lanes.coded_lens[coded])
+    stored = gather_rows(api._host_u8(archive), torch.from_numpy(header.stream_offs[coded]),
+                         coded_lens, enc_bytes.shape[1])
+    in_stream = torch.arange(enc_bytes.shape[1])[None, :] < coded_lens[:, None]
     verified = (np.array_equal(raw, lanes.raw)
-                and np.array_equal(enc_bytes[in_stream],
-                                   api._gather_slices(arch_u8, header.stream_offs[coded],
-                                                      lanes.coded_lens[coded])))
+                and torch.equal(torch.where(in_stream, enc_bytes[coded], 0), stored))
+    del enc_bytes, stored, in_stream
     got = np.zeros((n_blocks, k), dtype=np.uint8)
     got[lanes.order] = decoded.cpu().numpy()
     src = np.frombuffer(data, np.uint8)
@@ -211,7 +217,8 @@ def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10, *,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
         "n_blocks": n_blocks,
         "block_size": k,
-        "kernels": [name for name in counts1 if counts1[name] > counts0[name]],
+        "kernels": [name for name in counts0
+                    if counts1[name] > counts0[name] or counts3[name] > counts2[name]],
     }
     return result
 

@@ -1,7 +1,8 @@
-"""On-card checks of the kernels: each against its plain PyTorch version,
-the port against the golden archives, and the generic-model coders
-against K1, K3 and the oracle (:func:`check_generic`, which also runs on
-CPU tensors).
+"""On-card checks of the kernels: each against its plain PyTorch version
+(K1-K5, :func:`compare_kernels`; the staging kernels S1-S3,
+:func:`compare_staging`), the port against the golden archives, and the
+generic-model coders against K1, K3 and the oracle
+(:func:`check_generic`, which also runs on CPU tensors).
 
 Used by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.  Every check
 compares integers exactly (tolerance 0: the bar is byte equality) and
@@ -14,6 +15,7 @@ import hashlib
 import json
 import pathlib
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -32,6 +34,9 @@ from .ops.encode_m import encode_blocks_m, encode_blocks_m_plain
 from .ops.generic import (TorchModel, decode_blocks_generic, dense_torch_model,
                           encode_blocks_generic, make_generic_coders, static_torch_model)
 from .ops.model import model_lohi, model_lohi_plain, precompute_encode_model
+from .ops.staging import (CRC_SEGMENT, crc32, crc32_plain, gather_rows, gather_rows_plain,
+                          launch_crc32, launch_gather_rows, launch_splice_payload, splice_payload,
+                          splice_payload_plain)
 from .params import Parameters
 from .testdata import golden_input, incompressible, text_like
 
@@ -41,6 +46,16 @@ KERNELS = {
     "decode": ("redux_tpu_torch/csrc/decode.cu", "redux_tpu/ops/pallas_decode.py:109"),
     "encode_fused": ("redux_tpu_torch/csrc/encode_fused.cu", "redux_tpu/ops/pallas_encode.py:86"),
     "encode_m": ("redux_tpu_torch/csrc/encode_m.cu", "redux_tpu/ops/pallas_encode.py:564"),
+}
+# The staging kernels around K1-K3 (ops/staging.py), and the host code of
+# redux_tpu/api.py that each takes over.
+STAGING = {
+    "gather_rows": ("redux_tpu_torch/csrc/staging.cu",
+                    "redux_tpu/api.py:141 (_gather_slices; decode's _stage :460, raw splice :563)"),
+    "splice_payload": ("redux_tpu_torch/csrc/staging.cu",
+                       "redux_tpu/api.py:357 (encode's payload splice)"),
+    "crc32": ("redux_tpu_torch/csrc/staging.cu",
+              "redux_tpu/api.py:278 (container.compute_crc; decode's verify_crc :574)"),
 }
 # The encoders from symbols (K4, K5): kernel and plain version.
 SYMBOL_ENCODERS = {
@@ -67,6 +82,12 @@ OPS_PER_SYMBOL = {
     "encode_fused": 42,  # model_values + encode
     "encode_m": 42,      # the same function as encode_fused
 }
+# Integer operations a byte the staging kernels place: an index, a compare
+# and a shift or select (S1, S2); the table-driven CRC's xor, mask,
+# lookup and shift (S3).  None of the three has a PyTorch call that
+# computes it (a ragged gather, the payload splice, CRC-32), so each
+# library time is None too.
+OPS_PER_BYTE = {"gather_rows": 3, "splice_payload": 3, "crc32": 4}
 ROW_BYTES = 4 * 258  # the int32 initial row
 
 
@@ -111,23 +132,26 @@ class KernelInputs:
 
     def __init__(self, data: bytes, params: Parameters, delta: int, block_size: int,
                  device: torch.device):
-        ic = api._init_cum(params, api._prior_extra(data, params, api.DEFAULT_PRIOR_BUDGET))
-        syms, lens, _ = api._split_blocks(data, block_size)
+        lens = api._block_lens(len(data), block_size)
+        syms = api._blocks(data, 0, lens.size, block_size, device)
+        hist = api._byte_histogram(syms.view(-1)[: len(data)]).cpu().numpy()
+        ic = api._init_cum(params, api._prior_extra(hist, params, api.DEFAULT_PRIOR_BUDGET))
         self._place(syms, lens, ic, params, delta, device)
 
     @classmethod
-    def of_blocks(cls, syms: np.ndarray, lens: np.ndarray, init_cum: np.ndarray,
-                  params: Parameters, delta: int, device: torch.device) -> "KernelInputs":
+    def of_blocks(cls, syms, lens, init_cum: np.ndarray, params: Parameters, delta: int,
+                  device: torch.device) -> "KernelInputs":
         """The kernels' inputs for given ``(B, K)`` uint8 blocks, their
-        ``(B,)`` int32 lengths and an initial row of one's own."""
+        ``(B,)`` int32 lengths (arrays or tensors) and an initial row of
+        one's own."""
         x = cls.__new__(cls)
         x._place(syms, lens, init_cum, params, delta, device)
         return x
 
     def _place(self, syms, lens, ic, params, delta, device) -> None:
         self.params, self.delta, self.k = params, delta, syms.shape[1]
-        self.syms = torch.from_numpy(syms).to(device)
-        self.lens = torch.from_numpy(lens).to(device)
+        self.syms = torch.as_tensor(syms).to(device)
+        self.lens = torch.as_tensor(lens).to(device)
         self.init_cum = init_cum_from_numpy(ic, params, device)
         self.init_total = int(ic[-1])
         self.n_words = api._encode_words(params, self.k, delta)
@@ -331,14 +355,15 @@ def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
     header, _ = container.parse_archive(archive, with_streams=False)
     p, k, d = header.params, header.block_size, header.delta
     ic = api._init_cum(p, header.prior_extra)
-    arch_u8, src = np.frombuffer(archive, np.uint8), np.frombuffer(data, np.uint8)
+    arch = api._host_u8(archive).to(device)
     lens = api._block_lens(len(data), k)
     lanes = api._decode_lanes(header)
     chunk = api._lane_chunk(api.ENC_CHUNK_BYTES, k)
     out = []
     for c in chunks:
         s0, s1 = c * chunk, min((c + 1) * chunk, lens.size)
-        x = KernelInputs.of_blocks(api._block_rows(src, s0, s1, k), lens[s0:s1], ic, p, d, device)
+        x = KernelInputs.of_blocks(api._blocks(data, s0, s1, k, device), lens[s0:s1], ic, p, d,
+                                   device)
         mine = encode_blocks_ranked(x.syms, x.lens, x.init_cum, p, x.n_words, d)
         (lo, hi), ms_model = plain_run(
             lambda: model_lohi_plain(x.syms, x.lens, x.init_cum, p, d), timed)
@@ -355,17 +380,19 @@ def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
         coded = np.flatnonzero(~raw_c)
         _require(np.array_equal(bl[coded], lanes.coded_lens[s0:s1][coded]),
                  f"chunk {c}: stream lengths differ from the archive's")
-        byts = words_to_bytes(words).cpu().numpy()[coded]
+        coded_t = torch.from_numpy(coded).to(device)
+        byts = words_to_bytes(words)[coded_t]
         del words, plain
-        keep = np.arange(byts.shape[1])[None, :] < bl[coded][:, None]
-        stored = api._slice_rows(arch_u8, header.stream_offs[s0:s1][coded],
-                                 bl[coded].astype(np.int64), byts.shape[1])
-        _require(np.array_equal(np.where(keep, byts, 0), stored),
+        bl_t = torch.from_numpy(bl[coded].astype(np.int64)).to(device)
+        keep = torch.arange(byts.shape[1], device=device)[None, :] < bl_t[:, None]
+        stored = gather_rows(arch, torch.from_numpy(header.stream_offs[s0:s1][coded]).to(device),
+                             bl_t, byts.shape[1])
+        _require(torch.equal(torch.where(keep, byts, 0), stored),
                  f"chunk {c}: streams differ from the archive's")
         del byts, keep, stored
 
         sel = s0 + np.argsort(lanes.coded_lens[s0:s1], kind="stable")
-        staged, klens = api._stage_lanes(arch_u8, header, lanes, sel, device)
+        staged, klens = api._stage_lanes(arch, header, lanes, sel)
         syms = decode_blocks(staged, klens, x.init_cum, p, k, d)
         syms_p, ms_dec = plain_run(
             lambda: decode_blocks_plain(staged, klens, x.init_cum, p, k, d), timed)
@@ -376,6 +403,126 @@ def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
         out.append((s0, s1 - s0, int(raw_c.sum()),
                     {"model_values": ms_model, "encode": ms_enc, "decode": ms_dec}))
     return out
+
+
+def compare_staging(data: bytes, device, block_size: int | None = None,
+                    time_plain: bool = True, reps: int = 3) -> dict:
+    """S1-S3 against their plain versions at the shapes ``api`` gives them
+    for ``data`` at the shipped defaults (tpu_wide, delta 16, the prior),
+    in one lane chunk each way; tolerance 0.
+
+    S3 (``crc32``): the input, and its prefixes of 0, 1, ``CRC_SEGMENT``
+    - 1, ``CRC_SEGMENT``, ``CRC_SEGMENT`` + 1 and 5 ``CRC_SEGMENT`` + 3
+    bytes, each also equal to ``zlib.crc32``.  S2 (``splice_payload``):
+    K1 -> K2 over the input's blocks in one launch, the raw rule, and the
+    payload, which must also be the archive's.  S1 (``gather_rows``):
+    every lane of the archive sorted by coded length, as ``decode``
+    stages them (words; they must also be K2's words), and the raw
+    blocks' rows (bytes; they must also be the input's blocks).  Returns
+    per kernel ``max_abs_err``, ``ms`` (the kernel's launch alone, the
+    mean of ``reps``, CUDA events; S1's in word mode, ``ms_bytes`` in byte
+    mode, None without raw blocks), ``ms_call`` (the wrapper with its
+    checks and, for S3, the wait for its result), ``plain_ms`` (one run,
+    timed when ``time_plain`` on the card) and the bound of what it moves
+    (:func:`bound`); and ``raw_rows``, the raw blocks."""
+    dev = torch.device(device)
+    timed = time_plain and dev.type == "cuda"
+    p, d = Parameters.tpu_wide(), container.DEFAULT_DELTA
+    k = block_size or api._default_block_size(len(data))
+    x = KernelInputs(data, p, d, k, dev)
+    b = x.syms.shape[0]
+    chunk = min(api._lane_chunk(api.ENC_CHUNK_BYTES, k), api._lane_chunk(api.DEC_CHUNK_BYTES, k))
+    _require(b <= chunk, "compare_staging takes one lane chunk")
+    archive = api.encode(data, block_size=k, device=dev)
+    header, _ = container.parse_archive(archive, with_streams=False)
+    lanes = api._decode_lanes(header)
+    arch = api._host_u8(archive).to(dev)
+    out = {}
+
+    def kernel_ms(fn):
+        return cuda_ms(fn, reps) if reps and dev.type == "cuda" else None
+
+    flat = x.syms.view(-1)[: len(data)]
+    for m in (0, 1, CRC_SEGMENT - 1, CRC_SEGMENT, CRC_SEGMENT + 1, 5 * CRC_SEGMENT + 3):
+        m = min(m, len(data))
+        want = zlib.crc32(data[:m])
+        _require(crc32(flat[:m]) == crc32_plain(flat[:m]) == want, f"crc32 differs at {m} bytes")
+    got = crc32(flat)
+    plain, plain_ms = plain_run(lambda: crc32_plain(flat), timed)
+    _require(got == plain == header.crc32,
+             f"crc32 {got:#x}, plain {plain:#x}, archive {header.crc32:#x}")
+    scratch = torch.zeros(1, dtype=torch.int32, device=dev)
+    out["crc32"] = {"max_abs_err": abs(got - plain),
+                    "ms": kernel_ms(lambda: launch_crc32(flat, scratch)),
+                    "ms_call": kernel_ms(lambda: crc32(flat)), "plain_ms": plain_ms,
+                    **bound(len(data) + 4, OPS_PER_BYTE["crc32"] * len(data))}
+
+    words, bl, ovf = encode_blocks_ranked(x.syms, x.lens, x.init_cum, p, x.n_words, d)
+    raw = ovf | (bl >= x.lens)
+    wire = torch.where(raw, x.lens, bl).to(torch.int64)
+    total = int(wire.sum())
+    args = (words, x.syms, x.lens, bl, raw, torch.cumsum(wire, 0) - wire, total)
+    pay = splice_payload(*args)
+    pay_p, plain_ms = plain_run(lambda: splice_payload_plain(*args), timed)
+    err = _max_abs(pay, pay_p)
+    _require(err == 0, f"splice_payload differs from its plain version (max |diff| {err})")
+    stored = torch.frombuffer(bytearray(archive[len(archive) - total :]), dtype=torch.uint8)
+    _require(torch.equal(pay.cpu(), stored), "splice_payload differs from the archive's payload")
+    out["splice_payload"] = {"max_abs_err": err,
+                             "ms": kernel_ms(lambda: launch_splice_payload(*args[:6], pay_p)),
+                             "ms_call": kernel_ms(lambda: splice_payload(*args)),
+                             "plain_ms": plain_ms,
+                             **bound(2 * total + 17 * b, OPS_PER_BYTE["splice_payload"] * total)}
+    del pay, pay_p, stored
+
+    sel = lanes.order
+    staged, _ = api._stage_lanes(arch, header, lanes, sel)
+    wcap = staged.shape[1]
+    sel_t = torch.from_numpy(sel).to(dev)
+    lens_o = torch.from_numpy(lanes.coded_lens[sel]).to(dev)
+    args = (arch, torch.from_numpy(header.stream_offs[sel]).to(dev), lens_o, wcap, True)
+    staged_p, plain_ms = plain_run(lambda: gather_rows_plain(*args), timed)
+    err = _max_abs(staged, staged_p)
+    _require_rows((staged != staged_p).any(1),
+                  f"gather_rows (words) differs from its plain version (max |diff| {err})")
+    k2 = torch.nn.functional.pad(words, (0, 2))[sel_t, :wcap]
+    _require_rows(((staged != k2) & (lens_o > 0)[:, None]).any(1),
+                  "gather_rows (words) differs from K2's streams")
+    moved = int(lens_o.sum())
+    out["gather_rows"] = {"max_abs_err": err,
+                          "ms": kernel_ms(lambda: launch_gather_rows(*args[:3], staged_p, True)),
+                          "ms_call": kernel_ms(lambda: gather_rows(*args)),
+                          "plain_ms": plain_ms, "wcap": wcap,
+                          **bound(moved + 16 * b + 4 * b * wcap,
+                                  OPS_PER_BYTE["gather_rows"] * 4 * b * wcap)}
+    del staged, staged_p, k2, words
+
+    ri = np.flatnonzero(lanes.raw)
+    ri_t = torch.from_numpy(ri).to(dev)
+    args = (arch, torch.from_numpy(header.stream_offs[ri]).to(dev),
+            torch.from_numpy(lanes.block_lens[ri].astype(np.int64)).to(dev), k)
+    rows = gather_rows(*args)
+    rows_p = gather_rows_plain(*args, False)
+    err_b = _max_abs(rows, rows_p)
+    valid = torch.arange(k, device=dev)[None, :] < x.lens[ri_t][:, None]
+    _require(err_b == 0 and torch.equal(rows, torch.where(valid, x.syms[ri_t], 0)),
+             f"gather_rows (bytes) differs from its plain version or the blocks ({err_b})")
+    out["gather_rows"]["max_abs_err"] = max(err, err_b)
+    out["gather_rows"]["ms_bytes"] = (
+        kernel_ms(lambda: launch_gather_rows(*args[:3], rows_p, False)) if ri.size else None)
+    out["raw_rows"] = int(ri.size)
+    return out
+
+
+def check_staging(device: torch.device, n_blocks: int = 1024) -> dict:
+    """Phase 3 for S1-S3 (:func:`compare_staging`): ``n_blocks`` blocks of
+    4096 of :func:`phase3_data` (raw blocks, a short last block, a length
+    that is not a multiple of ``CRC_SEGMENT``), and 101 blocks of 1022
+    bytes (a block size that is not a multiple of 4)."""
+    data = phase3_data(n_blocks, K, SEED)
+    return {"tpu_wide": compare_staging(data, device, K),
+            "odd_101x1022": compare_staging(data[: 101 * 1022 - 340], device, 1022,
+                                            time_plain=False, reps=0)}
 
 
 def corruptions(archive: bytes):

@@ -161,6 +161,13 @@ def _block(rng: np.random.Generator, k: int) -> bytes:
     return incompressible(k, int(rng.integers(0, 1 << 31)))
 
 
+def _prior(data: bytes, params: Parameters, budget: int):
+    """``api.encode``'s prior for ``data``: its byte histogram (the plain
+    ``torch.bincount`` on the host) quantized with ``budget``."""
+    hist = api._byte_histogram(api._host_u8(data)).numpy()
+    return api._prior_extra(hist, params, budget)
+
+
 def draw(seed: int, index: int) -> Trial:
     """Trial ``index`` of campaign ``seed``, from ``default_rng([seed, index])``."""
     rng = np.random.default_rng([seed, index])
@@ -176,7 +183,7 @@ def draw(seed: int, index: int) -> Trial:
         # The row's total is at most the budget, below freq_max // 2: it
         # never needs the reference campaign's skip of a frozen start.
         trial.prior_budget = int(rng.integers(64, params.freq_max // 2))
-        trial.prior_extra = api._prior_extra(b"".join(blocks), params, trial.prior_budget)
+        trial.prior_extra = _prior(b"".join(blocks), params, trial.prior_budget)
     return trial
 
 
@@ -262,8 +269,7 @@ def _route(trial: Trial, device: torch.device, multi_chunk: bool) -> dict:
     faults = {}
     if back != data:
         # Only a block that the reference itself cannot decode may fail the crc.
-        extra = api._prior_extra(data, trial.params, kw["prior_budget"]) if kw["use_prior"] \
-            else None
+        extra = _prior(data, trial.params, kw["prior_budget"]) if kw["use_prior"] else None
         blocks = [data[i : i + trial.k] for i in range(0, len(data), trial.k)]
         _, faults = reference_blocks(blocks, trial.params, extra, trial.delta)
         if not faults or back is not None:

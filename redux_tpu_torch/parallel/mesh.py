@@ -13,7 +13,9 @@ count, cut into contiguous equal shards (what ``P("dp")`` does), each
 shard is moved to its device and its kernels are launched there, on that
 device's current stream.  Every shard is launched before any is fetched,
 so the devices run at once; the results come back to the input's device
-in block order.  A "mesh" here is a plain list of ``torch.device``.
+in block order.  ``api`` stages its data on the mesh's first device, so
+the shards move from device to device, never from pageable host memory.
+A "mesh" here is a plain list of ``torch.device``.
 """
 
 from __future__ import annotations

@@ -378,3 +378,108 @@ def test_corruption_sweep_on_the_card(cuda_device):
     assert sweep["truncation"]["exact"] == sweep["garbage"]["exact"] == 0
     assert sweep["bit flip"]["raised"] > 0
     assert api.decode(api.encode(data, device=cuda_device), device=cuda_device) == data
+
+
+@pytest.mark.cuda
+def test_staging_kernels_match_plain_versions(cuda_device):
+    """Phase 3 for S1-S3: 256 blocks of 4096 (raw blocks, a short last
+    block) and 101 of 1022, each kernel equal to its plain version."""
+    from redux_tpu_torch import cuda_checks
+
+    res = cuda_checks.check_staging(cuda_device, n_blocks=256)
+    for case in res.values():
+        assert all(case[k]["max_abs_err"] == 0 for k in cuda_checks.STAGING)
+    assert res["tpu_wide"]["raw_rows"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 15, 1023, 1024, 1025, 5 * 1024 + 3, (1 << 20) + 7])
+def test_crc32_kernel_equals_zlib(cuda_device, n):
+    """S3 at lengths around its 1 KiB segment, on an aligned tensor and on
+    a view one byte in."""
+    import zlib
+
+    import numpy as np
+
+    from redux_tpu_torch.ops import staging
+
+    data = np.random.default_rng(n).integers(0, 256, n + 1, dtype=np.uint8)
+    t = torch.from_numpy(data).to(cuda_device)
+    assert staging.crc32(t[:n]) == zlib.crc32(data[:n].tobytes())
+    assert staging.crc32(t[1:]) == zlib.crc32(data[1:].tobytes())
+
+
+@pytest.mark.cuda
+def test_gather_and_splice_kernels_at_their_edges(cuda_device):
+    """S1 with zero-length rows and rows at the full width, in both modes,
+    and S2 with raw and coded blocks, equal to their plain versions; rows
+    past the buffer raise before a launch."""
+    import numpy as np
+
+    import redux_tpu_torch
+    from redux_tpu_torch.errors import InvalidInputError
+    from redux_tpu_torch.ops import staging
+
+    rng = np.random.default_rng(4)
+    buf = torch.from_numpy(rng.integers(0, 256, 9000, dtype=np.uint8))
+    lens = torch.from_numpy(rng.integers(0, 129, 200))
+    lens[:2] = torch.tensor([0, 128])
+    offs = torch.from_numpy(rng.integers(0, 9000 - 128, 200))
+    redux_tpu_torch.reset_launch_counts()
+    for words, width in ((True, 32), (False, 128), (False, 130)):
+        got = staging.gather_rows(buf.to(cuda_device), offs.to(cuda_device), lens.to(cuda_device),
+                                  width, words)
+        assert torch.equal(got.cpu(), staging.gather_rows(buf, offs, lens, width, words))
+    with pytest.raises(InvalidInputError):
+        staging.gather_rows(buf.to(cuda_device), torch.tensor([8990], device=cuda_device),
+                            torch.tensor([11], device=cuda_device), 16)
+    b, k, n_words = 64, 300, 20
+    blocks = torch.from_numpy(rng.integers(0, 256, (b, k), dtype=np.uint8))
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (b, n_words))).to(torch.int32)
+    klens = torch.from_numpy(rng.integers(1, k + 1, b)).to(torch.int32)
+    byte_lens = torch.from_numpy(rng.integers(0, 4 * n_words + 1, b)).to(torch.int32)
+    raw = torch.from_numpy(rng.integers(0, 2, b).astype(bool))
+    wire = torch.where(raw, klens, byte_lens).to(torch.int64)
+    args = (words, blocks, klens, byte_lens, raw, torch.cumsum(wire, 0) - wire)
+    got = staging.splice_payload(*(a.to(cuda_device) for a in args), int(wire.sum()))
+    assert torch.equal(got.cpu(), staging.splice_payload(*args, int(wire.sum())))
+    counts = redux_tpu_torch.launch_counts()
+    assert (counts["gather_rows"], counts["splice_payload"]) == (3, 1), counts
+
+
+@pytest.mark.cuda
+def test_api_on_the_card_equals_the_cpu_over_lane_chunks(cuda_device, monkeypatch):
+    """300 blocks of 1024 with raw blocks and a short last block, the
+    chunks cut to 128 blocks: the card's archive is the CPU path's, decode
+    gives the input back, no plain version runs, and each kernel launches
+    as often as the chunks say (S1: three chunks of words and one of raw
+    rows; S3: three chunks and the decode's check)."""
+    import numpy as np
+
+    import redux_tpu_torch
+    from redux_tpu_torch import api, testdata
+    from redux_tpu_torch.ops import decode, encode, model, staging
+
+    k = 1024
+    data = bytearray(testdata.text_like(300 * k - 77, 21))
+    for i in np.random.default_rng(21).choice(300, 20, replace=False):
+        data[i * k : (i + 1) * k] = testdata.incompressible(k, int(i))
+    data = bytes(data[: 300 * k - 77])
+    monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * k)
+    monkeypatch.setattr(api, "DEC_CHUNK_BYTES", 128 * k)
+    want = api.encode(data, block_size=k, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+
+    for mod, name in ((model, "model_lohi_plain"), (encode, "encode_blocks_plain"),
+                      (decode, "decode_blocks_plain"), (staging, "gather_rows_plain"),
+                      (staging, "splice_payload_plain"), (staging, "crc32_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    redux_tpu_torch.reset_launch_counts()
+    arch = api.encode(data, block_size=k, device=cuda_device)
+    assert api.decode(arch, device=cuda_device) == data
+    assert arch == want
+    counts = redux_tpu_torch.launch_counts()
+    assert counts == {"model_values": 3, "encode": 3, "decode": 3, "encode_fused": 0,
+                      "encode_m": 0, "gather_rows": 4, "splice_payload": 3, "crc32": 4}, counts

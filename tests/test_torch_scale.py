@@ -1,6 +1,6 @@
 """The at-size logic of the port on the CPU, at small sizes: the test-data
-generators in segments, the byte histogram in segments, and the main path
-over nine lane chunks each way.
+generators in segments, the byte histogram over lane chunks, and the main
+path over nine lane chunks each way.
 
 The card runs the same code at 2 GiB + 1 MiB (``chip_smoke.py`` phase 11):
 524,544 blocks of 4 KiB, nine chunks of at most 65,536 blocks each way.
@@ -87,14 +87,18 @@ def test_text_like_is_a_prefix_of_longer_text_like():
 
 @pytest.mark.parametrize("n", [4096, 70_001, 300_000])
 def test_prior_in_segments_equals_the_one_shot_histogram(n, monkeypatch):
+    """The byte histogram (``torch.bincount``, the device histogram's plain
+    version) summed over encode's lane chunks of 128 blocks of 256 bytes
+    gives the prior of the one-shot ``np.bincount``."""
     data = testdata.mixed(n, 11)
     params = Parameters.tpu_wide()
     budget = min(api.DEFAULT_PRIOR_BUDGET, params.freq_max // 2)
-    want = quantize_prior(np.bincount(np.frombuffer(data, np.uint8), minlength=256),
-                          params, budget)[:256]
-    monkeypatch.setattr(api, "_HIST_SEGMENT", 4093)
-    got = api._prior_extra(data, params, api.DEFAULT_PRIOR_BUDGET)
-    assert np.array_equal(got, want)
+    one_shot = np.bincount(np.frombuffer(data, np.uint8), minlength=256)
+    want = quantize_prior(one_shot, params, budget)[:256]
+    assert np.array_equal(api._byte_histogram(api._host_u8(data)).numpy(), one_shot)
+    monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * 256)
+    header, _ = container.parse_archive(api.encode(data, block_size=256, device="cpu"))
+    assert np.array_equal(header.prior_extra, want)
 
 
 def test_nine_lane_chunks_each_way(monkeypatch):
@@ -129,7 +133,7 @@ def test_nine_lane_chunks_each_way(monkeypatch):
     timings = {}
     nine = api.encode(data, block_size=k, device="cpu", _timings=timings)
     assert enc_calls == [128] * 8 + [16]
-    assert set(timings) == {"prior+crc", "split", "kernel+fetch", "splice"}
+    assert set(timings) == {"pass1", "pass2", "header"}
     assert nine == one_chunk == ref_api.encode(data, block_size=k)
     header, _ = container.parse_archive(nine)
     assert header.n_blocks == 1040 and 40 <= sum(header.block_raw) < 1040
