@@ -31,9 +31,10 @@ every instantiation class, deltas, block sizes, contents and priors, K1-K5
 against their plain versions and the native serial coder, the ``api``
 route over several lane chunks and the generic coders.  Phase 11 runs at
 multi-GB size: 2 GiB + 1 MiB of ``testdata.mixed`` through ``api.encode``
--> ``decode`` (nine lane chunks each way, one launch each of K1, K2 and K3
-a chunk, two chunks held to the plain versions, S1-S3 held to theirs on
-one 65,536-lane chunk), the bench on 256 MiB of
+-> ``decode`` (nine lane chunks each way, one launch each of K1 and K2 a
+chunk and of K3 a range of blocks, the decode's device memory held under
+two ranges' worth, two chunks held to the plain versions, S1-S3 held to
+theirs on one 65,536-lane chunk), the bench on 256 MiB of
 ``text_like`` and on the first 1 GiB of the big input, the CLI over 512
 MiB (two chunks each way at (8,30,32), one held to the plain versions),
 and the container corruption sweep through K3, then phase 5's round trip
@@ -390,13 +391,20 @@ def _peak_device_gib(dev):
 def _at_size(dev, data):
     """Phase 11 (a): ``api.encode`` -> ``decode`` of ``data`` at the shipped
     defaults, launch counts reset just before the encode and read after
-    each way: K1 and K2 once a lane chunk, K3 once a chunk.  Byte-equal
-    (``decode`` verifies the crc); the middle and the last chunk are held
-    to the plain versions (``cuda_checks.check_chunk_streams``).  Prints
-    wall clock, host phases, peak device memory and the rise of the peak
-    host RSS each way."""
+    each way: K1 and K2 once a lane chunk, K3 once a range of blocks with
+    coded blocks.  Byte-equal (``decode`` verifies the crc); the middle
+    and the last chunk are held to the plain versions
+    (``cuda_checks.check_chunk_streams``).  The decode's peak device
+    memory must stay under two chunk slots
+    (``cuda_checks.decode_memory_bound``) and under the encode's.  Prints
+    wall clock (the decode's from a call without ``_timings``, whose marks
+    wait for the card), host phases (the decode's from a second call, with
+    them), peak device memory and the rise of the peak host RSS each
+    way."""
+    import numpy as np
+
     import redux_tpu_torch
-    from redux_tpu_torch import api, container
+    from redux_tpu_torch import api, container, cuda_checks
 
     k = api._default_block_size(len(data))
     n_blocks = -(-len(data) // k)
@@ -414,7 +422,9 @@ def _at_size(dev, data):
     t1 = time.perf_counter()
     enc_counts = redux_tpu_torch.launch_counts()
     dev_enc, rss1 = _peak_device_gib(dev), _peak_rss_gib()
-    back = api.decode(arch, device=dev, _timings=t_dec)
+    before = torch.cuda.memory_allocated(dev) / (1 << 30)
+    t_d = time.perf_counter()
+    back = api.decode(arch, device=dev)
     _sync(dev)
     t2 = time.perf_counter()
     counts = redux_tpu_torch.launch_counts()
@@ -422,28 +432,48 @@ def _at_size(dev, data):
     if back != data:
         raise AssertionError("at size: round trip is not byte-equal")
     del back
-    # Encode: K1, K2, S2 and S3 once a chunk.  Decode: K3 and S1 (words)
-    # once a chunk, S1 (bytes) once a chunk of raw blocks, S3 once.
-    n_raw = sum(container.parse_archive(arch, with_streams=False)[0].block_raw)
+    t3 = time.perf_counter()
+    back = api.decode(arch, device=dev, _timings=t_dec)
+    _sync(dev)
+    t_dec_timed = time.perf_counter() - t3
+    if back != data:
+        raise AssertionError("at size: round trip (with _timings) is not byte-equal")
+    del back
+    # Encode: K1, K2, S2 and S3 once a chunk.  Decode, a range of blocks a
+    # chunk: K3 and S1 (words) once a range with coded blocks, S1 (bytes)
+    # once a range with raw blocks, S3 once a range.
+    header = container.parse_archive(arch, with_streams=False)[0]
+    raw = np.asarray(header.block_raw)
+    ranges = [raw[s0 : s0 + dec_chunk] for s0 in range(0, n_blocks, dec_chunk)]
+    coded = sum(bool((~r).any()) for r in ranges)
+    with_raw = sum(bool(r.any()) for r in ranges)
     want_enc = dict.fromkeys(counts, 0) | {"model_values": n_enc, "encode": n_enc,
                                            "splice_payload": n_enc, "crc32": n_enc}
-    want_dec = want_enc | {"decode": n_dec, "gather_rows": n_dec + -(-n_raw // dec_chunk),
-                           "crc32": n_enc + 1}
+    want_dec = want_enc | {"decode": coded, "gather_rows": coded + with_raw,
+                           "crc32": n_enc + n_dec}
     if enc_counts != want_enc or counts != want_dec:
         raise AssertionError(f"at size: launches {enc_counts} after encode, {counts} after "
                              f"decode; want {want_enc}, then {want_dec}")
+    bound = cuda_checks.decode_memory_bound(header) / (1 << 30)
+    if dev_dec - before > bound or dev_dec > dev_enc:
+        raise AssertionError(f"at size: decode's peak device memory {dev_dec:.3f} GiB "
+                             f"({before:.3f} GiB before it) passes the two-slot bound "
+                             f"{bound:.3f} GiB or the encode's peak {dev_enc:.3f} GiB")
     gib = len(data) / (1 << 30)
     print(f"at size: {len(data)} bytes ({gib:.6f} GiB), {n_blocks} blocks of {k}, {n_enc} "
           f"encode chunks of <= {enc_chunk} blocks, {n_dec} decode chunks of <= {dec_chunk}; "
           f"archive {len(arch)} bytes, ratio {len(arch) / len(data):.6f}; round trip "
           f"byte-equal, crc verified; launches {json.dumps(counts)}")
     print(f"at size: encode {t1 - t0:.3f} s ({len(data) / (t1 - t0) / 1e6:.3f} MB/s), decode "
-          f"{t2 - t1:.3f} s ({len(data) / (t2 - t1) / 1e6:.3f} MB/s), wall clock with host work")
+          f"{t2 - t_d:.3f} s ({len(data) / (t2 - t_d) / 1e6:.3f} MB/s), wall clock with host work "
+          f"(the decode without _timings; {t_dec_timed:.3f} s with them)")
     print("at size: encode phases s " + json.dumps({k: round(v, 4) for k, v in t_enc.items()}))
     print("at size: decode phases s " + json.dumps({k: round(v, 4) for k, v in t_dec.items()}))
-    print(f"at size: peak device memory {dev_enc:.3f} GiB encode, {dev_dec:.3f} GiB decode; "
-          f"peak host RSS {rss0:.3f} GiB before, +{rss1 - rss0:.3f} GiB by the encode's end, "
-          f"+{rss2 - rss0:.3f} GiB by the decode's end")
+    print(f"at size: peak device memory {dev_enc:.3f} GiB encode, {dev_dec:.3f} GiB decode "
+          f"({before:.3f} GiB allocated before it: a rise of {dev_dec - before:.3f} GiB against "
+          f"the two-slot bound {bound:.3f} GiB, {coded} ranges with coded blocks, {with_raw} "
+          f"with raw blocks); peak host RSS {rss0:.3f} GiB before, +{rss1 - rss0:.3f} GiB by "
+          f"the encode's end, +{rss2 - rss0:.3f} GiB by the decode's end")
     _check_chunks("at size", data, arch, dev, [n_enc // 2, n_enc - 1])
 
 

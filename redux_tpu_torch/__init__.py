@@ -11,8 +11,9 @@ numpy, never JAX.
 K4, the fused model + coder, under ``REDUX_TPU_ENC_FUSED=1``, and the
 staging kernels around them (``ops.staging``: S1 row gather, S2 payload
 splice, S3 crc32): the data crosses the bus once each way (an input of
-several lane chunks twice on its way in).  Without a CUDA device they
-raise.  ``device="cpu"`` runs the kernels' plain PyTorch
+several lane chunks twice on its way in), and ``decode`` holds two ranges
+of blocks' worth on the card whatever the input's size.  Without a CUDA
+device they raise.  ``device="cpu"`` runs the kernels' plain PyTorch
 versions, as the tests do; a list of devices shards the blocks over them
 (``redux_tpu_torch.parallel``).  K5 (``ops.encode_m``) is the independent
 model-in-kernel encoder, as in the reference.

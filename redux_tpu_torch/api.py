@@ -18,9 +18,11 @@ with the staging kernels of ``ops.staging`` (S1 row gather, S2 payload
 splice, S3 crc32) and ``torch.bincount`` for the histogram.  ``encode``
 reads the input in lane chunks twice (histogram and crc, then the
 kernels; an input of one chunk crosses the bus once) and fetches each
-chunk's payload; ``decode`` uploads the archive once and fetches the
-output once.  Only the header, the prior's 256 counts and the lanes'
-order are host work.
+chunk's payload.  ``decode`` works a range of blocks at a time: the
+range's slice of the archive goes up, its output comes back into the
+result's memory while the next range decodes, so its device memory is
+two ranges' worth whatever the input's size.  Only the header, the
+prior's 256 counts and the lanes' order are host work.
 
 The device defaults to the card: ``device="cuda"`` runs the kernels, and
 with no CUDA device a call raises RuntimeError before any kernel work
@@ -44,6 +46,7 @@ change ``encode_auto``'s candidates, and so its bytes, silently.
 
 from __future__ import annotations
 
+import ctypes
 import time
 import warnings
 from typing import NamedTuple, Optional, Sequence, Union
@@ -315,6 +318,14 @@ class _Lanes(NamedTuple):
     order: np.ndarray  # lanes sorted by coded length (the reference's order)
 
 
+def _by_length(lens: np.ndarray) -> np.ndarray:
+    """The stable argsort of stream lengths (numpy's radix sort when they
+    fit 16 bits, as they do below 16 KiB blocks)."""
+    if lens.size and lens.max() < 1 << 16:
+        lens = lens.astype(np.uint16)
+    return np.argsort(lens, kind="stable")
+
+
 def _decode_lanes(header) -> _Lanes:
     """Which blocks of ``header`` are coded, their stream lengths and the
     order K3 takes them in; InvalidInputError where a raw block's stored
@@ -331,24 +342,141 @@ def _decode_lanes(header) -> _Lanes:
     n_words = _static_words(header.params, header.block_size, header.delta)
     if coded_lens.max(initial=0) > 4 * (n_words + 2):
         raise InvalidInputError()
-    return _Lanes(raw, block_lens, coded_lens, np.argsort(coded_lens, kind="stable"))
+    return _Lanes(raw, block_lens, coded_lens, _by_length(coded_lens))
 
 
-def _stage_lanes(arch: torch.Tensor, header, lanes: _Lanes, sel: np.ndarray):
-    """K3's input for the lanes ``sel`` of the archive ``arch`` (a uint8
-    tensor; S1 on its device): their streams as a ``(len(sel), wcap)``
-    word matrix, zero past each stream and for two words past the longest
-    (reads past a stream's terminator see zero bits; the kernel also
-    bounds-checks its row), and their int32 symbol counts, 0 for a raw
-    block."""
+def _stage_lanes(arch: torch.Tensor, header, lanes: _Lanes, sel: np.ndarray, base: int = 0):
+    """K3's input for the lanes ``sel`` of the archive bytes ``arch`` (a
+    uint8 tensor from archive offset ``base`` on; S1 on its device): their
+    streams as a ``(len(sel), wcap)`` word matrix, zero past each stream
+    and for two words past the longest (reads past a stream's terminator
+    see zero bits; the kernel also bounds-checks its row), and their int32
+    symbol counts, 0 for a raw block."""
     dev = arch.device
     n_words = _static_words(header.params, header.block_size, header.delta)
     lens_o = lanes.coded_lens[sel]
     wcap = min(max(4, -(-int(lens_o.max(initial=0)) // 4) + 2), n_words + 2)
-    words = gather_rows(arch, torch.from_numpy(header.stream_offs[sel]).to(dev),
+    words = gather_rows(arch, torch.from_numpy(header.stream_offs[sel] - base).to(dev),
                         torch.from_numpy(lens_o).to(dev), wcap, words=True)
     klens = np.where(lanes.raw[sel], 0, lanes.block_lens[sel]).astype(np.int32)
     return words, torch.from_numpy(klens).to(dev)
+
+
+def _chunk_slices(header, lanes: _Lanes, chunk: int) -> list:
+    """``(s0, s1, a, b)`` of each of ``decode``'s chunks: blocks ``s0 ..
+    s1`` of ``chunk`` and the bytes ``archive[a:b]`` that hold them (the
+    payload is in block order)."""
+    n = header.n_blocks
+    ends = header.stream_offs + np.where(lanes.raw, lanes.block_lens, lanes.coded_lens)
+    out = []
+    for s0 in range(0, n, chunk):
+        s1 = min(s0 + chunk, n)
+        out.append((s0, s1, int(header.stream_offs[s0]), int(ends[s1 - 1])))
+    return out
+
+
+def _decode_chunk(arch: torch.Tensor, base: int, header, lanes: _Lanes, s0: int,
+                  out: torch.Tensor, ic_t: torch.Tensor, mesh: Optional[Mesh]) -> None:
+    """Blocks ``s0 .. s0 + len(out)`` into the rows of ``out`` (``(rows,
+    k)`` uint8 on ``arch``'s device) from their slice ``arch`` of the
+    archive, which starts at archive offset ``base``: a raw block's row is
+    its stored bytes (S1, bytes), the coded blocks go through S1 (words)
+    and K3 sorted by coded length, and their symbols into their rows.  Both
+    S1 calls check their rows, which waits for the card, before K3 is
+    queued.  No coded block, no K3."""
+    dev = arch.device
+    raw = lanes.raw[s0 : s0 + out.shape[0]]
+    ri, ci = np.flatnonzero(raw), np.flatnonzero(~raw)
+    if ri.size:
+        r = s0 + ri
+        rows = gather_rows(arch, torch.from_numpy(header.stream_offs[r] - base).to(dev),
+                           torch.from_numpy(lanes.block_lens[r].astype(np.int64)).to(dev),
+                           out.shape[1])
+    if ci.size:
+        ci = ci[_by_length(lanes.coded_lens[s0 + ci])]
+        words, klens = _stage_lanes(arch, header, lanes, s0 + ci, base)
+        k, p, d = header.block_size, header.params, header.delta
+        if mesh is None:
+            syms = decode_blocks(words, klens, ic_t, p, k, d)
+        else:
+            syms = decode_blocks_sharded(words, klens, ic_t, p, k, mesh, d)
+        del words
+        out.index_copy_(0, torch.from_numpy(ci).to(dev), syms)
+    if ri.size:
+        out.index_copy_(0, torch.from_numpy(ri).to(dev), rows)
+
+
+_new_pybytes = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_void_p, ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
+_pybytes_data = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(
+    ("PyBytes_AsString", ctypes.pythonapi))
+
+
+def _new_bytes(n: int) -> tuple[bytes, torch.Tensor]:
+    """A new ``bytes`` of ``n`` >= 1 bytes, not yet written, and a writable
+    uint8 CPU tensor over its memory.  CPython's
+    ``PyBytes_FromStringAndSize(NULL, n)`` makes a fresh object that no one
+    else holds, so ``decode`` can write its output there and return it:
+    the result is the one full-size copy of the output on the host.  The
+    tensor must not outlive the object."""
+    if n < 1:
+        raise ValueError("n must be >= 1")
+    obj = _new_pybytes(None, n)
+    return obj, torch.frombuffer((ctypes.c_uint8 * n).from_address(_pybytes_data(obj)),
+                                 dtype=torch.uint8)
+
+
+class _Fetch:
+    """``decode``'s chunk outputs on the device and their way into the
+    result's memory ``dst`` (a uint8 CPU tensor).
+
+    :meth:`out` gives chunk ``i`` its output rows, one of ``n_slots``
+    device slots of ``(rows, k)``, allocated once.  On a CUDA device
+    :meth:`put` copies a chunk's bytes to the host on a side stream, after
+    the chunk's work on the current stream, into one of as many pinned
+    slots (allocated at the first put), and :meth:`drain` waits for that
+    copy and copies the pinned slot into ``dst``: ``decode`` drains chunk
+    ``i - 1`` while the card runs chunk ``i``.  Every put drains first, so
+    a chunk waits for the host copy of the chunk two before it, the last
+    one to use its slots.  On the CPU, put copies into ``dst`` at once: no
+    pinned memory, no stream.
+    """
+
+    def __init__(self, dst: torch.Tensor, device: torch.device, rows: int, k: int,
+                 n_slots: int):
+        self.dst = dst
+        self.outs = torch.empty(n_slots, rows, k, dtype=torch.uint8, device=device)
+        self.side = torch.cuda.Stream(device) if device.type == "cuda" else None
+        if self.side is not None:
+            self.outs.record_stream(self.side)  # freed only once the side stream's copies end
+        self.pinned = []
+        self.pending = None  # (event, pinned slot, offset in dst)
+
+    def out(self, i: int, rows: int) -> torch.Tensor:
+        return self.outs[i % self.outs.shape[0], :rows]
+
+    def put(self, i: int, flat: torch.Tensor, off: int) -> None:
+        """Chunk ``i``'s bytes ``flat`` (a view of its output) to ``dst[off:]``."""
+        self.drain()
+        if self.side is None:
+            self.dst[off : off + flat.shape[0]].copy_(flat)
+            return
+        if not self.pinned:
+            self.pinned = [torch.empty(self.outs[0].numel(), dtype=torch.uint8, pin_memory=True)
+                           for _ in range(self.outs.shape[0])]
+        slot = self.pinned[i % len(self.pinned)][: flat.shape[0]]
+        self.side.wait_stream(torch.cuda.current_stream(flat.device))
+        with torch.cuda.stream(self.side):
+            slot.copy_(flat, non_blocking=True)
+            self.pending = (self.side.record_event(), slot, off)
+
+    def drain(self) -> None:
+        """The pending chunk from its pinned slot into ``dst``."""
+        if self.pending is not None:
+            done, slot, off = self.pending
+            done.synchronize()
+            self.dst[off : off + slot.shape[0]].copy_(slot)
+            self.pending = None
 
 
 def decode(archive: bytes, *, device: Devices = "cuda",
@@ -358,12 +486,23 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     Verifies the stored crc32 and raises :class:`InvalidInputError` on any
     corruption instead of returning garbage.  ``device`` (default
     ``"cuda"``) runs the kernel; ``device="cpu"`` runs its plain version; a
-    sequence of devices shards the blocks over them.
+    sequence of devices shards each chunk's blocks over them.
 
-    ``_timings`` receives the wall time of each phase: ``parse`` (the
-    header and the lanes' order), ``upload`` (the archive), ``kernels``
-    (per lane chunk S1 -> K3 into the output rows, then the raw blocks'
-    rows) and ``crc+fetch``.
+    A chunk is a range of ``_lane_chunk(DEC_CHUNK_BYTES, k)`` blocks.  Each
+    has its own upload (its slice of the archive), S1 and K3 into its own
+    output rows (:func:`_decode_chunk`), S3, and fetch (:class:`_Fetch`:
+    on the card the output comes back on a side stream while the next
+    chunk runs); the chunks' CRCs are combined and checked after the last.
+    The device holds at most two chunks' outputs and one chunk's slice,
+    words and symbols, whatever the input's size.
+
+    ``_timings`` receives the wall time of each phase, summed over the
+    chunks: ``parse`` (the header and the lanes), ``upload`` (a chunk's
+    slice), ``kernels`` (S1 -> K3 into the rows, the raw rows) and
+    ``crc+fetch`` (S3, the copy to the host and into the result).  Each
+    mark waits for the card, which serializes the fetch that otherwise
+    overlaps the next chunk: read the wall clock from a call without
+    ``_timings``.
     """
     device, mesh = _placement(device)
     clock = _Clock(_timings, mesh or [device])
@@ -373,48 +512,35 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     if header.orig_len == 0:
         container.verify_crc(header, b"")
         return b""
-    ic = _init_cum(params, header.prior_extra)
-    n_blocks = header.n_blocks
-    k = header.block_size
+    n, k, n_blocks = header.orig_len, header.block_size, header.n_blocks
     lanes = _decode_lanes(header)
-    ic_t = init_cum_from_numpy(ic, params, device)
-    clock.mark("parse")
-    arch = _host_u8(archive).to(device)  # one pageable copy to a card
-    clock.mark("upload")
-
-    # Each chunk of lanes decodes straight into its blocks' rows; a raw
-    # block's row is its stored bytes.  Every row is written once.
+    ic_t = init_cum_from_numpy(_init_cum(params, header.prior_extra), params, device)
     chunk = _lane_chunk(DEC_CHUNK_BYTES, k)
-    out = torch.empty(n_blocks, k, dtype=torch.uint8, device=device)
-    for s0 in range(0, n_blocks, chunk):
-        sel = lanes.order[s0 : s0 + chunk]
-        rows = torch.from_numpy(sel).to(device)
-        if lanes.coded_lens[sel].max(initial=0) == 0:  # all-raw slab: no kernel work
-            out.index_fill_(0, rows, 0)
-            continue
-        words, klens = _stage_lanes(arch, header, lanes, sel)
-        if mesh is None:
-            syms = decode_blocks(words, klens, ic_t, params, k, header.delta)
-        else:
-            syms = decode_blocks_sharded(words, klens, ic_t, params, k, mesh, header.delta)
-        out.index_copy_(0, rows, syms)
-        del words, syms
-    ri = np.flatnonzero(lanes.raw)
-    for s0 in range(0, ri.size, chunk):
-        r = ri[s0 : s0 + chunk]
-        rows = torch.from_numpy(r).to(device)
-        out.index_copy_(0, rows, gather_rows(
-            arch, torch.from_numpy(header.stream_offs[r]).to(device),
-            torch.from_numpy(lanes.block_lens[r].astype(np.int64)).to(device), k))
-    del arch
-    clock.mark("kernels")
+    slices = _chunk_slices(header, lanes, chunk)
+    result, dst = _new_bytes(n)
+    fetch = _Fetch(dst, device, min(chunk, n_blocks), k, min(2, len(slices)))
+    src = _host_u8(archive)
+    crcs, after = [], []
+    clock.mark("parse")
 
-    flat = out.view(-1)[: header.orig_len]
-    if crc32(flat) != header.crc32:
+    for i, (s0, s1, base, end) in enumerate(slices):
+        arch = src[base:end].to(device)
+        clock.mark("upload")
+        out = fetch.out(i, s1 - s0)
+        _decode_chunk(arch, base, header, lanes, s0, out, ic_t, mesh)
+        del arch
+        clock.mark("kernels")
+        fetch.drain()  # the previous chunk into the result while K3 runs
+        flat = out.view(-1)[: min(s1 * k, n) - s0 * k]
+        crcs.append(crc32(flat))
+        after.append(n - s0 * k - flat.shape[0])
+        fetch.put(i, flat, s0 * k)
+        clock.mark("crc+fetch")
+    fetch.drain()
+    if combine_crcs(torch.tensor(crcs, dtype=torch.int64), torch.tensor(after)) != header.crc32:
         raise InvalidInputError()
-    res = flat.cpu().numpy().tobytes()
     clock.mark("crc+fetch")
-    return res
+    return result
 
 
 def encode_compact(data: bytes, cfg: int) -> bytes:

@@ -405,6 +405,20 @@ def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
     return out
 
 
+def decode_memory_bound(header) -> int:
+    """Bytes of device memory ``api.decode`` may hold at once for
+    ``header``'s archive, reckoned from one chunk's shapes: two chunk
+    slots, each the largest chunk's slice of the archive, its staged words
+    (``rows x (n_words + 2)`` int32, the widest K3's input can be), K3's
+    symbols and the chunk's output (``rows x k`` bytes each).  None of it
+    grows with the input past one chunk."""
+    k = header.block_size
+    rows = min(api._lane_chunk(api.DEC_CHUNK_BYTES, k), header.n_blocks)
+    slices = api._chunk_slices(header, api._decode_lanes(header), rows)
+    n_words = api._static_words(header.params, k, header.delta)
+    return 2 * (max(b - a for _, _, a, b in slices) + 4 * rows * (n_words + 2) + 2 * rows * k)
+
+
 def compare_staging(data: bytes, device, block_size: int | None = None,
                     time_plain: bool = True, reps: int = 3) -> dict:
     """S1-S3 against their plain versions at the shapes ``api`` gives them

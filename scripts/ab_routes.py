@@ -3,14 +3,17 @@
     python3 scripts/ab_routes.py A_DIR B_DIR [--reps 5] [--mib 64]
 
 Each checkout runs as a fresh process, in the order A, B, B, A: it builds
-its kernels, warms up on 4 MiB, then runs ``--reps`` round trips of
-``redux_tpu_torch.api.encode`` -> ``decode`` on ``--mib`` MiB of
+its kernels, warms up on 4 MiB, then runs ``--reps`` times two round trips
+of ``redux_tpu_torch.api.encode`` -> ``decode`` on ``--mib`` MiB of
 ``testdata.mixed`` (seed 2024, the input of ``chip_smoke.py``) on
-``cuda:0``, each round trip verified byte for byte.  Prints one JSON line
-a process, then per checkout the median over all its round trips of the
-encode and decode wall clock and of each host phase (``_timings``), in
-seconds.  Compare two versions only within one call: the host's noise
-between calls exceeds the differences this measures.
+``cuda:0``, each verified byte for byte: one for the wall clock, one with
+``_timings`` for the host phases (each phase's mark waits for the card,
+which serializes work that otherwise overlaps).  Prints one JSON line a
+process, then per checkout the median over all its round trips of the
+encode and decode wall clock and of each host phase, in seconds, and of
+each way's peak device memory (the allocator's), in GiB.  Compare
+two versions only within one call: the host's noise between calls exceeds
+the differences this measures.
 """
 
 from __future__ import annotations
@@ -41,17 +44,27 @@ def worker(root: Path, reps: int, mib: int) -> None:
     torch.cuda.synchronize()
     runs = []
     for _ in range(reps):
-        t_enc, t_dec = {}, {}
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        arch = api.encode(data, device=dev, _timings=t_enc)
+        arch = api.encode(data, device=dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        back = api.decode(arch, device=dev, _timings=t_dec)
+        peak_enc = torch.cuda.max_memory_allocated(dev) / (1 << 30)
+        torch.cuda.reset_peak_memory_stats(dev)
+        back = api.decode(arch, device=dev)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        peak_dec = torch.cuda.max_memory_allocated(dev) / (1 << 30)
         if back != data:
             raise AssertionError("round trip is not byte-equal")
-        runs.append({"encode": t1 - t0, "decode": t2 - t1,
+        del back
+        t_enc, t_dec = {}, {}
+        if api.encode(data, device=dev, _timings=t_enc) != arch:
+            raise AssertionError("the archive differs between two calls")
+        if api.decode(arch, device=dev, _timings=t_dec) != data:
+            raise AssertionError("round trip (with _timings) is not byte-equal")
+        runs.append({"encode": t1 - t0, "decode": t2 - t1, "peak GiB encode": peak_enc,
+                     "peak GiB decode": peak_dec,
                      **{f"encode {k}": v for k, v in t_enc.items()},
                      **{f"decode {k}": v for k, v in t_dec.items()},
                      "archive": len(arch)})

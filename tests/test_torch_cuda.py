@@ -452,12 +452,14 @@ def test_api_on_the_card_equals_the_cpu_over_lane_chunks(cuda_device, monkeypatc
     """300 blocks of 1024 with raw blocks and a short last block, the
     chunks cut to 128 blocks: the card's archive is the CPU path's, decode
     gives the input back, no plain version runs, and each kernel launches
-    as often as the chunks say (S1: three chunks of words and one of raw
-    rows; S3: three chunks and the decode's check)."""
+    as often as the chunks say (encode: K1, K2, S2 and S3 once a chunk;
+    decode, a range of blocks a chunk: K3 and S1 (words) once a range with
+    coded blocks, S1 (bytes) once a range with raw blocks, S3 once a
+    range)."""
     import numpy as np
 
     import redux_tpu_torch
-    from redux_tpu_torch import api, testdata
+    from redux_tpu_torch import api, container, testdata
     from redux_tpu_torch.ops import decode, encode, model, staging
 
     k = 1024
@@ -481,5 +483,64 @@ def test_api_on_the_card_equals_the_cpu_over_lane_chunks(cuda_device, monkeypatc
     assert api.decode(arch, device=cuda_device) == data
     assert arch == want
     counts = redux_tpu_torch.launch_counts()
-    assert counts == {"model_values": 3, "encode": 3, "decode": 3, "encode_fused": 0,
-                      "encode_m": 0, "gather_rows": 4, "splice_payload": 3, "crc32": 4}, counts
+    raw = np.asarray(container.parse_archive(arch, with_streams=False)[0].block_raw)
+    ranges = [raw[s0 : s0 + 128] for s0 in range(0, 300, 128)]
+    coded = sum(bool((~r).any()) for r in ranges)
+    with_raw = sum(bool(r.any()) for r in ranges)
+    assert coded == 3 and with_raw >= 2
+    assert counts == {"model_values": 3, "encode": 3, "decode": coded, "encode_fused": 0,
+                      "encode_m": 0, "gather_rows": coded + with_raw, "splice_payload": 3,
+                      "crc32": 3 + 3}, counts
+
+
+@pytest.mark.cuda
+def test_decode_device_memory_is_flat_over_chunks(cuda_device, monkeypatch):
+    """With ``DEC_CHUNK_BYTES`` at 128 x 4096, decode 8 and 32 ranges of
+    128 blocks: the allocator's peak during each decode (above what was
+    allocated before it) stays under two chunk slots reckoned from the
+    chunk's shapes (``cuda_checks.decode_memory_bound``: the largest
+    slice, 128 rows of staged words, K3's symbols and the output, twice),
+    and the 32-range peak is within 5% of the 8-range peak.  K3 and S1
+    (words) launch once a range with coded blocks, S1 (bytes) once a range
+    with raw blocks, S3 once a range, and no plain version runs."""
+    import numpy as np
+
+    import redux_tpu_torch
+    from redux_tpu_torch import api, container, cuda_checks, testdata
+    from redux_tpu_torch.ops import decode, staging
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+
+    monkeypatch.setattr(api, "DEC_CHUNK_BYTES", 128 * 4096)
+    k, peaks = 4096, []
+    for n_ranges in (8, 32):
+        data = testdata.mixed(n_ranges * 128 * k - 100, 31)
+        arch = api.encode(data, block_size=k, device=cuda_device)
+        header, _ = container.parse_archive(arch, with_streams=False)
+        assert api.decode(arch, device=cuda_device) == data  # warm-up: pinned slots, allocator
+        with monkeypatch.context() as m:
+            for mod, name in ((decode, "decode_blocks_plain"), (staging, "gather_rows_plain"),
+                              (staging, "crc32_plain")):
+                m.setattr(mod, name, refuse)
+            torch.cuda.synchronize(cuda_device)
+            before = torch.cuda.memory_allocated(cuda_device)
+            torch.cuda.reset_peak_memory_stats(cuda_device)
+            redux_tpu_torch.reset_launch_counts()
+            back = api.decode(arch, device=cuda_device)
+            torch.cuda.synchronize(cuda_device)
+            counts = redux_tpu_torch.launch_counts()
+            peak = torch.cuda.max_memory_allocated(cuda_device) - before
+        assert back == data
+        raw = np.asarray(header.block_raw)
+        ranges = [raw[s0 : s0 + 128] for s0 in range(0, header.n_blocks, 128)]
+        assert len(ranges) == n_ranges
+        coded = sum(bool((~r).any()) for r in ranges)
+        with_raw = sum(bool(r.any()) for r in ranges)
+        assert with_raw > 0
+        assert counts == dict.fromkeys(counts, 0) | {
+            "decode": coded, "gather_rows": coded + with_raw, "crc32": n_ranges}, counts
+        bound = cuda_checks.decode_memory_bound(header)
+        assert 0 < peak <= bound, (n_ranges, peak, bound)
+        peaks.append(peak)
+    assert abs(peaks[1] - peaks[0]) <= 0.05 * peaks[0], peaks

@@ -199,9 +199,10 @@ def test_multi_chunk_encode_and_decode(monkeypatch):
     """Encode and decode cut the lanes into chunks of at least 128 blocks.
     With the chunk sizes at 128 blocks of 256 bytes, 300 blocks take three
     chunks each way: the archive equals the one-chunk archive and the
-    reference's, and decode round-trips.  130 incompressible blocks first
-    are stored raw and sort first by coded length 0, so decode's first
-    chunk is all raw and launches no decoder."""
+    reference's, and decode round-trips.  A decode chunk is a range of
+    blocks and its decoder call takes the range's coded blocks: the 130
+    incompressible blocks first are stored raw, so the first range is all
+    raw and launches no decoder, the second has 126 coded blocks."""
     k = 256
     data = incompressible(130 * k, 23) + text_like(170 * k - 77, 23)
     one_chunk = api.encode(data, block_size=k, device="cpu")
@@ -221,4 +222,6 @@ def test_multi_chunk_encode_and_decode(monkeypatch):
 
     monkeypatch.setattr(api, "decode_blocks", counting)
     assert api.decode(three_chunks, device="cpu") == data
-    assert calls == [128, 44], calls  # the first chunk of 128 lanes took the all-raw branch
+    raw = np.asarray(header.block_raw)
+    assert calls == [int((~raw[s0 : s0 + 128]).sum()) for s0 in (128, 256)] == [126, 44], calls
+    assert raw[:128].all()  # the first range took the all-raw branch

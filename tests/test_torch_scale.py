@@ -103,10 +103,10 @@ def test_prior_in_segments_equals_the_one_shot_histogram(n, monkeypatch):
 
 def test_nine_lane_chunks_each_way(monkeypatch):
     """1,040 blocks of 256 bytes with the chunks at 128 blocks: nine encode
-    launches (eight of 128, one of 16) and nine decode launches (the 40
-    raw blocks sort into the first, which has coded lanes too); the
-    archive equals the one-chunk archive and the reference's, and decode
-    round-trips."""
+    launches (eight of 128, one of 16) and nine decode launches, one a
+    range of 128 blocks over its coded blocks (the 40 raw blocks fall in
+    every range); the archive equals the one-chunk archive and the
+    reference's, and decode round-trips."""
     k = 256
     rng = np.random.default_rng(9)
     data = bytearray(testdata.text_like(1040 * k - 77, 9))  # the last block short
@@ -143,4 +143,7 @@ def test_nine_lane_chunks_each_way(monkeypatch):
     chunks = cuda_checks.check_chunk_streams(data, nine, "cpu", [4, 8])
     assert [c[:2] for c in chunks] == [(512, 128), (1024, 16)]
     assert api.decode(nine, device="cpu") == data
-    assert dec_calls == [128] * 8 + [16]
+    # A decode chunk is a range of blocks; its K3 takes the range's coded blocks.
+    raw = np.asarray(header.block_raw)
+    assert dec_calls == [int((~raw[s0 : s0 + 128]).sum()) for s0 in range(0, 1040, 128)]
+    assert len(dec_calls) == 9 and dec_calls[-1] == 15

@@ -220,8 +220,8 @@ def test_splice_payload_refuses_a_stream_past_the_buffer(monkeypatch):
 def test_multi_chunk_encode_equals_the_reference(params, delta, k, monkeypatch):
     """Lane chunks of 128 blocks: 300 blocks with raw blocks in several
     chunks and a short last block encode to the JAX package's archive and
-    one chunk's archive, and decode back (raw rows gathered chunk by
-    chunk)."""
+    one chunk's archive, and decode back (a range of blocks at a time:
+    its raw rows, then its coded blocks' words)."""
     rng = np.random.default_rng(k)
     n = 300 * k - 37
     data = bytearray(testdata.text_like(n, 12))
@@ -251,8 +251,16 @@ def test_multi_chunk_encode_equals_the_reference(params, delta, k, monkeypatch):
     timings = {}
     assert api.decode(arch, device="cpu", _timings=timings) == data
     assert set(timings) == {"parse", "upload", "kernels", "crc+fetch"}
-    assert [w for _, w in gathers] == [True, True, True, False]
-    assert [b for b, w in gathers if w] == [128, 128, 44]
+    # Each range of 128 blocks gathers its raw blocks' bytes, then its
+    # coded blocks' words (K3's input).
+    raw = np.asarray(header.block_raw)
+    want = []
+    for s0 in range(0, 300, 128):
+        r = raw[s0 : s0 + 128]
+        want += [(int(r.sum()), False)] * bool(r.any()) + [(int((~r).sum()), True)] * bool(
+            (~r).any())
+    assert gathers == want
+    assert [w for _, w in gathers] == [False, True] * 3
 
 
 def test_offsets_past_the_archive_raise_before_any_gather(monkeypatch):
