@@ -495,6 +495,8 @@ def _check_chunks(what, data, arch, dev, chunks):
 
 def _print_staging(what, res):
     """One line a staging kernel of ``cuda_checks.compare_staging``'s result."""
+    from redux_tpu_torch import cuda_checks
+
     for k in ("gather_rows", "splice_payload", "crc32"):
         r = res[k]
         ms = f"{r['ms']:.4f} ms" if r["ms"] is not None else "not timed"
@@ -506,8 +508,9 @@ def _print_staging(what, res):
         print(f"{what} {k}: equal (max |diff| {r['max_abs_err']}), kernel {ms}, plain {plain}, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} bytes, {r['ops']} "
               f"int32 ops)")
-    print(f"{what}: {res['raw_rows']} raw blocks, crc32 also equal to zlib.crc32 at 0, 1, "
-          "1023, 1024, 1025 and 5123 bytes")
+    edges = ", ".join(map(str, cuda_checks.CRC_EDGES))
+    print(f"{what}: {res['raw_rows']} raw blocks, crc32 also equal to zlib.crc32 at {edges} "
+          "bytes and from 1, 7 and 15 bytes in")
 
 
 def phase11(dev):

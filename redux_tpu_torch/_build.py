@@ -49,10 +49,9 @@ SIGNATURES = {
     "rxt_encode_m": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # buf, n, offs, lens, out, B, width, words, device, stream
     "rxt_gather_rows": (_P, _L, _P, _P, _P, _I, _I, _I, _I, _P),
-    # words, n_words, blocks, k, lens, byte_lens, raw, offs, out, total, B,
-    # device, stream
-    "rxt_splice_payload": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _P),
-    # buf, n, pow8, out, device, stream
+    # words, n_words, blocks, k, B, ends, raw, out, total, device, stream
+    "rxt_splice_payload": (_P, _I, _P, _I, _L, _P, _P, _P, _L, _I, _P),
+    # buf, n, consts, out, device, stream
     "rxt_crc32": (_P, _L, _P, _P, _I, _P),
 }
 

@@ -18,7 +18,8 @@ with the staging kernels of ``ops.staging`` (S1 row gather, S2 payload
 splice, S3 crc32) and ``torch.bincount`` for the histogram.  ``encode``
 reads the input in lane chunks twice (histogram and crc, then the
 kernels; an input of one chunk crosses the bus once) and fetches each
-chunk's payload.  ``decode`` works a range of blocks at a time: the
+chunk's payload; the chunks' CRCs stay on the device until all are
+queued.  ``decode`` works a range of blocks at a time: the
 range's slice of the archive goes up, its output comes back into the
 result's memory while the next range decodes, so its device memory is
 two ranges' worth whatever the input's size.  Only the header, the
@@ -62,7 +63,7 @@ from .models.dense import prior_init_cum, quantize_prior, uniform_init_cum
 from .ops.coder import max_block_words
 from .ops.decode import decode_blocks
 from .ops.encode import encode_blocks_ranked
-from .ops.staging import combine_crcs, crc32, gather_rows, splice_payload
+from .ops.staging import combine_crcs, crc32_device, gather_rows, splice_payload
 from .parallel.mesh import (Mesh, data_parallel_mesh, decode_blocks_sharded,
                             encode_blocks_ranked_sharded)
 from .params import Parameters
@@ -251,20 +252,23 @@ def encode(
     chunk = _lane_chunk(ENC_CHUNK_BYTES, k)
 
     # Pass 1, a lane chunk at a time: the histogram and the chunk's crc on
-    # the device.  An input of one chunk keeps its blocks for pass 2.
+    # the device, fetched once after the last chunk.  An input of one
+    # chunk keeps its blocks for pass 2.
     hist = torch.zeros(256, dtype=torch.int64, device=device)
-    crcs, after, kept = [], [], None
-    for s0 in range(0, n_blocks, chunk):
+    starts = range(0, n_blocks, chunk)
+    crcs = torch.zeros(len(starts), dtype=torch.int32, device=device)
+    after, kept = [], None
+    for i, s0 in enumerate(starts):
         s1 = min(s0 + chunk, n_blocks)
         blocks = _blocks(data, s0, s1, k, device)
         flat = blocks.view(-1)[: min(s1 * k, n) - s0 * k]
         if use_prior:
             hist += _byte_histogram(flat)
-        crcs.append(crc32(flat))
+        crc32_device(flat, crcs[i : i + 1])
         after.append(max(n - s1 * k, 0))
         if n_blocks <= chunk:
             kept = blocks
-    crc = combine_crcs(torch.tensor(crcs, dtype=torch.int64), torch.tensor(after))
+    crc = combine_crcs(crcs.cpu().to(torch.int64) & 0xFFFFFFFF, torch.tensor(after))
     prior_extra = _prior_extra(hist.cpu().numpy(), params, prior_budget) if use_prior else None
     ic = _init_cum(params, prior_extra)
     _check_config(params, block_size, delta, int(ic[-1]))
@@ -289,14 +293,15 @@ def encode(
             words, bl, ov = encode_blocks_ranked_sharded(
                 blocks, lens_t, ic_t, params, n_words, mesh, delta)
         # Stored raw: overflowed blocks and any block not smaller coded.
+        # The wire lengths and flags come to the host for the header; S2
+        # lays the payload out by them.
         raw = ov | (bl >= lens_t)
-        wire = torch.where(raw, lens_t, bl).to(torch.int64)
-        head = torch.stack([wire, raw.to(torch.int64)]).cpu().numpy()
-        payload = splice_payload(words, blocks, lens_t, bl, raw, torch.cumsum(wire, 0) - wire,
-                                 int(head[0].sum()))
+        head = torch.stack([torch.where(raw, lens_t, bl), raw.to(torch.int32)]).cpu()
+        wire, raw_h = head[0], head[1].bool()
+        payload = splice_payload(words, blocks, raw_h, wire)
         pieces.append(payload.cpu().numpy())
-        wire_parts.append(head[0])
-        raw_parts.append(head[1].astype(bool))
+        wire_parts.append(wire.numpy())
+        raw_parts.append(raw_h.numpy())
         del blocks, words, payload
     clock.mark("pass2")
 
@@ -492,7 +497,8 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     has its own upload (its slice of the archive), S1 and K3 into its own
     output rows (:func:`_decode_chunk`), S3, and fetch (:class:`_Fetch`:
     on the card the output comes back on a side stream while the next
-    chunk runs); the chunks' CRCs are combined and checked after the last.
+    chunk runs); the chunks' CRCs stay on the device until the last chunk,
+    then come back together to be combined and checked.
     The device holds at most two chunks' outputs and one chunk's slice,
     words and symbols, whatever the input's size.
 
@@ -520,7 +526,8 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     result, dst = _new_bytes(n)
     fetch = _Fetch(dst, device, min(chunk, n_blocks), k, min(2, len(slices)))
     src = _host_u8(archive)
-    crcs, after = [], []
+    crcs = torch.zeros(len(slices), dtype=torch.int32, device=device)
+    after = []
     clock.mark("parse")
 
     for i, (s0, s1, base, end) in enumerate(slices):
@@ -532,12 +539,12 @@ def decode(archive: bytes, *, device: Devices = "cuda",
         clock.mark("kernels")
         fetch.drain()  # the previous chunk into the result while K3 runs
         flat = out.view(-1)[: min(s1 * k, n) - s0 * k]
-        crcs.append(crc32(flat))
+        crc32_device(flat, crcs[i : i + 1])
         after.append(n - s0 * k - flat.shape[0])
         fetch.put(i, flat, s0 * k)
         clock.mark("crc+fetch")
     fetch.drain()
-    if combine_crcs(torch.tensor(crcs, dtype=torch.int64), torch.tensor(after)) != header.crc32:
+    if combine_crcs(crcs.cpu().to(torch.int64) & 0xFFFFFFFF, torch.tensor(after)) != header.crc32:
         raise InvalidInputError()
     clock.mark("crc+fetch")
     return result

@@ -10,7 +10,7 @@
 // buf[offs[i] : offs[i] + lens[i]], zero to the row's width, as bytes or
 // packed into big-endian u32 words (K3's input).
 // S2 splice_payload takes over encode's payload assembly (:357-399): each
-// block's wire bytes at its payload offset, its coded stream out of K2's
+// block's wire bytes one after another, its coded stream out of K2's
 // words, or its own bytes where it is stored raw.
 // S3 crc32 takes over container.compute_crc / verify_crc (:278, :574):
 // zlib's CRC-32 (reflected 0xEDB88320, init and final xor 0xFFFFFFFF).
@@ -19,26 +19,93 @@
 // write it once; S3 reads its input once, at a few integer operations a
 // byte.
 //
-// Design.  S1 and S2: one CTA of 256 threads a row, the threads walking
-// the row together, so a warp's stores cover 32 neighbouring bytes (S1
-// bytes, S2) or 128 (S1 words: four byte loads and one u32 store a
-// thread).  Every read is bounded by the buffer's length and by the row's
-// width, whatever the offsets say; the wrappers also check the offsets
-// before the launch and raise on a row past the buffer.
-// S3: one thread a 1 KiB segment, slicing-by-4 (four 256-entry tables in
-// shared memory, 16-byte loads); each segment's CRC is then moved to its
-// place in the whole by a GF(2) product with x^(8 * bytes after it) mod P,
-// as zlib's crc32_combine does, and the products are XORed: a warp
-// reduction and one atomicXor a warp.  XOR commutes, so the result does
-// not depend on the order.  The powers x^(8 * 2^b) come from the wrapper,
-// the table the plain version uses.
+// S1: one CTA of 256 threads a row, the threads walking the row together,
+// so a warp's stores cover 32 neighbouring bytes (bytes) or 128 (words:
+// four byte loads and one u32 store a thread).  Every read is bounded by
+// the buffer's length and by the row's width, whatever the offsets say; the
+// wrapper also checks the offsets before the launch.
+//
+// S2, output-stationary.  The wrapper checks the wire lengths on the host
+// (the header's, which the caller holds) and uploads them; their running
+// sum on the card gives each row's end.  A CTA writes a 64 KiB tile of the
+// payload, a thread 16 aligned 16-byte pieces of it, 4 KiB apart, so a
+// warp's stores cover 512 neighbouring bytes and every byte is written
+// once.  The CTA finds its first row by a search over the ends (a sample a
+// thread, __syncthreads_count: two steps for 65,536 rows) and keeps the
+// tile's rows in shared memory: each one's end, raw flag and source base
+// (where its stream would hold the tile's byte 0), and a hint a warp's 512
+// bytes, so a piece finds its row in about one step.  A piece inside one
+// row is two aligned 16-byte loads of its source (the raw block, or K2's
+// words, whose big-endian bytes the permute reverses) and one __byte_perm
+// a word, then one 16-byte store.  A piece across rows (short rows, a
+// short last block) ORs each row's window under a byte mask; only at the
+// end of a source buffer are bytes read one at a time.  Every read is
+// bounded by its buffer's length and its row's capacity, every write by
+// the payload's, whatever the lengths say.  What holds it back: about 80
+// instructions a piece (its row, the window's select and permute) and a
+// CTA's search before its first store; 48 registers, 5 CTAs an SM.
+//
+// S3, coalesced loads and a CRC combined as a tree.  A CTA of 512 reading
+// threads (and one warp for the variable powers) walks a run of 128 KiB
+// tiles; warp w reads the w-th 8 KiB of each tile, lane l its 16 bytes at
+// 16 l + 512 j, so every warp load is 512 neighbouring bytes.  A lane's
+// register runs over its loads with zeros between them: after each 16
+// bytes it moves on by x^(8 * 496), after a tile by the gap to its next
+// load, a constant multiply read as four lookups of a shift table.
+// Slicing by 4 takes one table lookup a byte; the four 256-entry tables
+// sit in shared memory in 16 copies, lane l reading copy l % 16, so at
+// most two lanes meet in a bank (64 KiB; with the shift tables 108 KiB,
+// two CTAs an SM, one's table fill and tail under the other's reads).  At
+// the end the registers combine as a tree (__shfl_down over the lanes,
+// then the 16 warp values): level s moves the left run by x^(8 * 16 *
+// 2^s) between lanes, x^(8 * 8 KiB * 2^s) between warps, a shift table
+// each.  Only then is a variable power paid, once a CTA: the bytes after
+// its run, x^(8 * after) as a warp's tree of GF(2) products of the
+// x^(8 * 2^b) table, computed by the extra warp while the others read.
+// CTA 0 adds the initial value's term x^(8n) * ~0 and the final xor.  The
+// tiles are aligned to end at the input's end rounded up to 16 bytes, so a
+// load never needs the input to be aligned; bytes outside the input read
+// as zero (the leading ones change nothing), and the last CTA undoes the
+// at most 15 zeros past the end with x^(-8z).  Products are XORed into the
+// result with one atomicXor a CTA, which the entry zeroes first.  What
+// holds it back: the loads in flight (ptxas keeps a thread to 32
+// registers, about one 16-byte load ahead) and a launch's fixed cost: the
+// zeroing, the table fill and the tail.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCrcSegment = 1024;  // bytes a thread of S3 (ops/staging.py CRC_SEGMENT)
+constexpr int kThreads = 256;  // S1
+
+constexpr int kSpliceThreads = 256;
+constexpr int kSplicePieces = 16;  // aligned 16-byte pieces a thread
+constexpr long long kSpliceTile = 16LL * kSplicePieces * kSpliceThreads;  // 64 KiB of payload
+constexpr int kSpliceRows = 1024;  // rows of a tile kept in shared memory
+constexpr int kSpliceHints = static_cast<int>(kSpliceTile / 512);  // a hint a warp's 512 bytes
+
+constexpr int kCrcThreads = 512;  // threads that read (ops/staging.py CRC_THREADS)
+constexpr int kCrcSegment = 256;  // bytes a thread reads from a tile (CRC_SEGMENT)
+constexpr int kCrcLoads = kCrcSegment / 16;  // its 16-byte loads, 512 bytes apart
+constexpr long long kCrcRun = 32LL * kCrcSegment;  // a warp's run of a tile: 8 KiB
+constexpr long long kCrcTile = static_cast<long long>(kCrcThreads) * kCrcSegment;
+constexpr int kCrcLevels = 9;  // log2(kCrcThreads): the tree's levels
+constexpr int kCrcBlock = kCrcThreads + 32;  // and the warp for the variable powers
+constexpr int kCrcAhead = 8;  // 16-byte loads a thread issues ahead of its lookups
 constexpr uint32_t kPoly = 0xEDB88320u;
+constexpr uint32_t kOne = 0x80000000u;  // x^0 (bit 31 the coefficient of x^0)
+// The constants (ops/staging.py crc_consts), in u32 words: the four
+// slicing tables; the shift tables (4 x 256: entry [k][b] = a * (b << 8k)
+// mod P) of the gaps between a lane's loads, x^(8 * 496), and between its
+// last load of a tile and its first of the next, and of the tree levels
+// (x^(8 * 16 * 2^s) within a warp, x^(8 * 8 KiB * 2^s) across warps);
+// x^(8 * 2^b) for b < 64; x^(-8z) for z < 16.
+constexpr int kGapOff = 1024;
+constexpr int kPow8Off = kGapOff + 1024 * (2 + kCrcLevels);
+constexpr int kInv8Off = kPow8Off + 64;
+constexpr int kCopies = 16;  // of the slicing tables in shared memory
+constexpr int kSmemSlice = 1024 * kCopies;           // u32 words
+constexpr int kSmemShift = 1024 * (2 + kCrcLevels);  // the gaps' and the tree's tables
+constexpr int kCrcSmem = 4 * (kSmemSlice + kSmemShift + 16 + 2);  // + warp values, m, K
 
 template <bool kWords>
 __global__ void __launch_bounds__(kThreads)
@@ -66,92 +133,370 @@ gather_rows_kernel(const uint8_t* __restrict__ buf, long long n,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-splice_payload_kernel(const uint32_t* __restrict__ words, int n_words,
-                      const uint8_t* __restrict__ blocks, int k,
-                      const int32_t* __restrict__ lens, const int32_t* __restrict__ byte_lens,
-                      const bool* __restrict__ raw, const long long* __restrict__ offs,
-                      uint8_t* __restrict__ out, long long total) {
-  const size_t row = blockIdx.x;
-  const bool r = raw[row];
-  const long long off = offs[row];
-  long long wire = r ? lens[row] : byte_lens[row];
-  const long long cap = r ? k : 4LL * n_words;
-  if (wire > cap) wire = cap;
-  if (off < 0 || off > total) wire = 0;
-  if (wire > total - off) wire = total - off;  // never past the payload
-  uint8_t* o = out + off;
-  if (r) {
-    const uint8_t* s = blocks + row * k;
-    for (long long j = threadIdx.x; j < wire; j += kThreads) o[j] = s[j];
-  } else {
-    const uint32_t* w = words + row * n_words;
-    for (long long j = threadIdx.x; j < wire; j += kThreads)
-      o[j] = static_cast<uint8_t>(w[j >> 2] >> (24 - 8 * (j & 3)));
+// The first row whose end passes x (B if none); ends non-decreasing.
+// Every thread of the CTA calls it with the same x: each step samples the
+// range a thread, and __syncthreads_count of the samples at or before x
+// narrows it 256-fold.
+__device__ long long first_row_past(const long long* __restrict__ ends, long long B, long long x) {
+  long long lo = 0, hi = B;  // rows before lo end at or before x; the answer is <= hi
+  while (lo < hi) {
+    const long long step = (hi - lo + kSpliceThreads - 1) / kSpliceThreads;
+    const long long i = lo + threadIdx.x * step;
+    const int c = __syncthreads_count(i < hi && __ldg(ends + i) <= x);
+    if (c == 0) break;  // row lo itself ends past x
+    const long long base = lo;
+    lo = base + (c - 1) * step + 1;
+    hi = min(hi, base + c * step);
+  }
+  return lo;
+}
+
+// The 16 bytes of a source buffer from stream byte at: two aligned 16-byte
+// loads and one byte permute a word.  K2's words are big-endian u32s, so
+// with swap stream byte 4m + t is byte 3 - t of word m.  False where the
+// loads would leave the buffer's len bytes.
+__device__ __forceinline__ bool piece16(const uint8_t* __restrict__ src, long long len,
+                                        long long at, bool swap, uint4* v) {
+  const long long c0 = at & ~15LL;
+  const int sh = static_cast<int>(at & 15);
+  if (at < 0 || c0 + (sh ? 32 : 16) > len) return false;
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(src + c0));
+  const uint4 b = sh ? __ldg(reinterpret_cast<const uint4*>(src + c0 + 16)) : a;
+  // Words s4 .. s4 + 4 of the 32-byte window, by two selects of 2 and 1.
+  const uint32_t w8[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t w[6], x[5];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) w[j] = sh & 8 ? w8[j + 2] : w8[j];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) x[j] = sh & 4 ? w[j + 1] : w[j];
+  // Output byte u of a word is stream byte (sh & 3) + u of the pair (x[j],
+  // x[j + 1]): its index in the pair, reversed within each word for swap.
+  const int s1 = sh & 3;
+  const uint32_t sel = swap ? static_cast<uint32_t>(0x5670670170120123ULL >> (16 * s1)) & 0xFFFF
+                            : 0x3210u + 0x1111u * s1;
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) o[j] = __byte_perm(x[j], x[j + 1], sel);
+  *v = make_uint4(o[0], o[1], o[2], o[3]);
+  return true;
+}
+
+// The bytes [lo, hi) of a 16-byte piece (0 <= lo < hi <= 16), as a mask a word.
+__device__ __forceinline__ uint32_t byte_mask(int lo, int hi, int word) {
+  const int a = min(max(lo - 4 * word, 0), 4), b = min(max(hi - 4 * word, 0), 4);
+  return static_cast<uint32_t>(((1ULL << (8 * b)) - 1) & ~((1ULL << (8 * a)) - 1));
+}
+
+// The rows that meet a tile, tile-relative: end(j) and start(j) of row r0
+// + j, and whether it is raw.  kShared: from the CTA's table in shared
+// memory (ends as int32 offsets from the tile, clamped to it, shifted left
+// one bit over the raw flag); else from the global arrays.
+template <bool kShared>
+struct TileRows {
+  const int* tab;
+  const int* hint;  // kShared: the first row to end past each 512 bytes of the tile
+  const long long* src;  // kShared: src_base of each row
+  const long long* ends;
+  const bool* raw;
+  long long r0, tile0, start0;  // start0: row r0's start, tile-relative
+  int k, n_words;
+  __device__ __forceinline__ long long end(long long j) const {
+    return kShared ? tab[j] >> 1 : __ldg(ends + r0 + j) - tile0;
+  }
+  __device__ __forceinline__ long long start(long long j) const {
+    return j == 0 ? start0 : end(j - 1);
+  }
+  __device__ __forceinline__ bool is_raw(long long j) const {
+    return kShared ? tab[j] & 1 : raw[r0 + j];
+  }
+  // The source byte (in its buffer's stream order) of the tile's byte 0 as
+  // if row j held it: the row's byte p is at src_base(j) + p.
+  __device__ __forceinline__ long long src_base(long long j) const {
+    if (kShared) return src[j];
+    const long long r = r0 + j;
+    return (is_raw(j) ? r * k : 4 * r * n_words) - start(j);
+  }
+};
+
+// A CTA's tile of S2 over its n_rows rows.
+template <bool kShared>
+__device__ __forceinline__ void splice_tile(const TileRows<kShared>& rows, long long n_rows,
+                                            const uint32_t* __restrict__ words, int n_words,
+                                            const uint8_t* __restrict__ blocks, int k, long long B,
+                                            uint8_t* __restrict__ out, long long total) {
+  const long long tile0 = rows.tile0, span = min(kSpliceTile, total - tile0);
+  const long long src_raw = B * k, src_coded = 4 * B * n_words;  // the sources' bytes
+  const auto* coded = reinterpret_cast<const uint8_t*>(words);
+#pragma unroll 1
+  for (int m = 0; m < kSplicePieces; ++m) {
+    const int p = 16 * (m * kSpliceThreads + threadIdx.x);  // from the tile's start
+    if (p >= span) break;
+    int lo = 0, hi = static_cast<int>(n_rows) - 1;  // the first row to end past p
+    if (kShared) {  // between the hints of p's 512 bytes and the next's: mostly one row
+      const int q = p >> 9;
+      lo = rows.hint[q];
+      if (q + 1 < kSpliceHints) hi = rows.hint[q + 1];
+    }
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (rows.end(mid) > p) hi = mid;
+      else lo = mid + 1;
+    }
+    uint4 v;
+    if (p + 16 <= rows.end(lo)) {  // inside one row (it starts at or before p): one window
+      const long long at = rows.src_base(lo) + p;
+      if (rows.is_raw(lo) ? piece16(blocks, src_raw, at, false, &v)
+                          : piece16(coded, src_coded, at, true, &v)) {
+        *reinterpret_cast<uint4*>(out + tile0 + p) = v;
+        continue;
+      }
+    }
+    // Each row that meets the piece [p, p + 16): its 16-byte window from
+    // the stream byte at p, masked to the bytes that are the row's.
+    uint32_t o[4] = {0, 0, 0, 0};
+    for (long long j = lo; j < n_rows; ++j) {
+      const long long e = rows.end(j), s = rows.start(j), r = rows.r0 + j;
+      const long long at = rows.src_base(j) + p;
+      if (s >= p + 16) break;
+      if (e <= s) continue;  // an empty row
+      const bool is_raw = rows.is_raw(j);
+      const long long cap = is_raw ? k : 4LL * n_words;
+      const int a = static_cast<int>(max(s, static_cast<long long>(p)) - p);
+      const int b = static_cast<int>(min(e, p + 16LL) - p);
+      if (!(is_raw ? piece16(blocks, src_raw, at, false, &v)
+                   : piece16(coded, src_coded, at, true, &v))) {
+        // At a buffer's edge: the row's bytes one at a time, zero past
+        // its capacity.
+        uint32_t w[4] = {0, 0, 0, 0};
+        for (int u = a; u < b; ++u) {
+          const long long q = p + u - s;
+          uint32_t byte = 0;
+          if (q < cap)
+            byte = is_raw ? blocks[r * k + q]
+                          : (words[r * n_words + (q >> 2)] >> (24 - 8 * (q & 3))) & 0xFFu;
+          w[u >> 2] |= byte << (8 * (u & 3));
+        }
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      o[0] |= v.x & byte_mask(a, b, 0);
+      o[1] |= v.y & byte_mask(a, b, 1);
+      o[2] |= v.z & byte_mask(a, b, 2);
+      o[3] |= v.w & byte_mask(a, b, 3);
+      if (e >= p + 16) break;
+    }
+    if (p + 16 <= span) {
+      *reinterpret_cast<uint4*>(out + tile0 + p) = make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (p + u < span) out[tile0 + p + u] = static_cast<uint8_t>(o[u >> 2] >> (8 * (u & 3)));
+    }
   }
 }
 
-// a * b mod P over GF(2), bit 31 the coefficient of x^0 (zlib's multmodp).
+__global__ void __launch_bounds__(kSpliceThreads, 5)
+splice_payload_kernel(const uint32_t* __restrict__ words, int n_words,
+                      const uint8_t* __restrict__ blocks, int k, long long B,
+                      const long long* __restrict__ ends, const bool* __restrict__ raw,
+                      uint8_t* __restrict__ out, long long total) {
+  __shared__ int s_tab[kSpliceRows];
+  __shared__ long long s_src[kSpliceRows];
+  __shared__ int s_hint[kSpliceHints];
+  __shared__ long long s_start0;  // row r0's start
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kSpliceTile;
+  const long long tile1 = min(tile0 + kSpliceTile, total);
+  const long long r0 = first_row_past(ends, B, tile0);
+  // The tile's rows r0 .. r1 (r1 the first to end at or past tile1), 256
+  // a pass, the first kSpliceRows of them into the table.
+  long long r1 = B - 1;
+  for (long long base = r0; base < B; base += kSpliceThreads) {
+    const long long i = base + threadIdx.x;
+    const long long e = i < B ? __ldg(ends + i) : 0;
+    if (i < B && i - r0 < kSpliceRows) {
+      const bool rw = raw[i];
+      const long long s = i > 0 ? __ldg(ends + i - 1) : 0;
+      s_tab[i - r0] = static_cast<int>(min(e - tile0, kSpliceTile)) << 1 | (rw ? 1 : 0);
+      s_src[i - r0] = (rw ? i * k : 4 * i * n_words) - (s - tile0);
+      if (i == r0) s_start0 = s;
+    }
+    const int c = __syncthreads_count(i < B && e < tile1);
+    if (c < kSpliceThreads) {
+      r1 = min(base + c, B - 1);
+      break;
+    }
+  }
+  __syncthreads();
+  const long long n_rows = r1 - r0 + 1, start0 = s_start0 - tile0;
+  const bool in_smem = n_rows <= kSpliceRows;
+  if (in_smem && threadIdx.x < kSpliceHints) {
+    int lo = 0, hi = static_cast<int>(n_rows) - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((s_tab[mid] >> 1) > 512 * static_cast<int>(threadIdx.x)) hi = mid;
+      else lo = mid + 1;
+    }
+    s_hint[threadIdx.x] = lo;
+  }
+  __syncthreads();
+  if (in_smem)
+    splice_tile(TileRows<true>{s_tab, s_hint, s_src, ends, raw, r0, tile0, start0, k, n_words},
+                n_rows, words, n_words, blocks, k, B, out, total);
+  else
+    splice_tile(TileRows<false>{s_tab, s_hint, s_src, ends, raw, r0, tile0, start0, k, n_words},
+                n_rows, words, n_words, blocks, k, B, out, total);
+}
+
+// a * b mod P over GF(2), bit 31 the coefficient of x^0 (zlib's multmodp),
+// without a branch.
 __device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b) {
   uint32_t p = 0;
+#pragma unroll 8
   for (int j = 0; j < 32; ++j) {
-    if (a & (0x80000000u >> j)) p ^= b;
+    p ^= b & (0u - ((a >> (31 - j)) & 1u));
     b = (b >> 1) ^ (kPoly & (0u - (b & 1u)));
   }
   return p;
 }
 
-// Four bytes (little-endian in x, already xored into the CRC) at once.
-__device__ __forceinline__ uint32_t step4(const uint32_t (*t)[256], uint32_t x) {
-  return t[3][x & 0xFF] ^ t[2][(x >> 8) & 0xFF] ^ t[1][(x >> 16) & 0xFF] ^ t[0][x >> 24];
+// v * a mod P for the constant a of the shift table s.
+__device__ __forceinline__ uint32_t shift(const uint32_t* s, uint32_t v) {
+  return s[v & 0xFF] ^ s[256 + ((v >> 8) & 0xFF)] ^ s[512 + ((v >> 16) & 0xFF)] ^
+         s[768 + (v >> 24)];
 }
 
-__global__ void __launch_bounds__(kThreads)
-crc32_kernel(const uint8_t* __restrict__ buf, long long n, const uint32_t* __restrict__ pow8,
-             uint32_t* __restrict__ out) {
-  __shared__ uint32_t t[4][256];
-  __shared__ uint32_t pw[64];
-  for (int i = threadIdx.x; i < 256; i += kThreads) {
-    uint32_t c = i;
-    for (int b = 0; b < 8; ++b) c = (c >> 1) ^ (kPoly & (0u - (c & 1u)));
-    t[0][i] = c;
+// x^(8e) mod P, by a whole warp: lane b takes bits b and b + 32 of e, and
+// the warp multiplies the factors as a tree.
+__device__ uint32_t pow_x8(unsigned long long e, const uint32_t* __restrict__ pow8, int lane) {
+  const uint32_t lo = (e >> lane) & 1 ? __ldg(pow8 + lane) : kOne;
+  const uint32_t hi = (e >> (lane + 32)) & 1 ? __ldg(pow8 + lane + 32) : kOne;
+  uint32_t f = mulmod(lo, hi);
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) f = mulmod(f, __shfl_xor_sync(rxt::kFull, f, d));
+  return f;
+}
+
+// Four bytes (little-endian in x, already xored into the register) at
+// once; t is this lane's copy of the tables (lane l reads copy l % 16).
+__device__ __forceinline__ uint32_t step4(const uint32_t* t, uint32_t x) {
+  return t[(768 + (x & 0xFF)) * kCopies] ^ t[(512 + ((x >> 8) & 0xFF)) * kCopies] ^
+         t[(256 + ((x >> 16) & 0xFF)) * kCopies] ^ t[(x >> 24) * kCopies];
+}
+
+__device__ __forceinline__ uint32_t step16(const uint32_t* t, uint32_t c, uint4 x) {
+  c = step4(t, c ^ x.x);
+  c = step4(t, c ^ x.y);
+  c = step4(t, c ^ x.z);
+  return step4(t, c ^ x.w);
+}
+
+// A 16-byte read-only load the compiler may neither repeat nor move past
+// another: S3 keeps its loads ahead of the lookups.
+__device__ __forceinline__ uint4 load_nc(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// The 16 bytes at buf + o (o from the 16-byte aligned frame), zero outside
+// [0, n): only the input's own bytes are read.
+__device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ buf, long long n, long long o) {
+  if (o >= 0 && o + 16 <= n) return __ldg(reinterpret_cast<const uint4*>(buf + o));
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (o + j >= 0 && o + j < n) w[j >> 2] |= static_cast<uint32_t>(buf[o + j]) << (8 * (j & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// CTA c takes tiles [c * per_cta, ...) of the frame, which starts frame
+// bytes from buf (<= 0, 16-byte aligned) and ends z bytes past buf + n.
+__global__ void __launch_bounds__(kCrcBlock, 2)
+crc32_kernel(const uint8_t* __restrict__ buf, long long n, const uint32_t* __restrict__ consts,
+             long long frame, long long n_tiles, int per_cta, int z, uint32_t* __restrict__ out) {
+  extern __shared__ uint4 smem4[];
+  uint32_t* const slice = reinterpret_cast<uint32_t*>(smem4);
+  uint32_t* const shifts = slice + kSmemSlice;  // the gaps' tables, then the tree's
+  uint32_t* const warp_v = shifts + kSmemShift;
+  uint32_t* const mk = warp_v + 16;  // this CTA's multiplier and added term
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long t0 = static_cast<long long>(blockIdx.x) * per_cta;
+  const long long t1 = min(t0 + per_cta, n_tiles);
+  // Slicing entry e's 16 copies are 64 contiguous bytes: 4 lanes an entry.
+  for (int q = tid; q < kSmemSlice / 4; q += kCrcBlock) {
+    const uint32_t v = __ldg(consts + q / (kCopies / 4));
+    smem4[q] = make_uint4(v, v, v, v);
   }
-  if (threadIdx.x < 64) pw[threadIdx.x] = pow8[threadIdx.x];
+  for (int q = tid; q < kSmemShift / 4; q += kCrcBlock)
+    reinterpret_cast<uint4*>(shifts)[q] =
+        __ldg(reinterpret_cast<const uint4*>(consts + kGapOff) + q);
   __syncthreads();
-  for (int i = threadIdx.x; i < 256; i += kThreads) {
-    uint32_t c = t[0][i];
-    for (int s = 1; s < 4; ++s) {
-      c = (c >> 8) ^ t[0][c & 0xFF];
-      t[s][i] = c;
+
+  uint32_t r = 0;
+  if (warp == kCrcThreads / 32) {
+    // The powers, while the other warps read.  The bytes from this CTA's
+    // last tile end to the input's end: the last CTA's frame passes it by z.
+    const uint32_t m = t1 == n_tiles
+        ? __ldg(consts + kInv8Off + z)
+        : pow_x8((n_tiles - t1) * kCrcTile - z, consts + kPow8Off, lane);
+    const uint32_t kterm = blockIdx.x == 0
+        ? mulmod(pow_x8(n, consts + kPow8Off, lane), 0xFFFFFFFFu) ^ 0xFFFFFFFFu : 0u;
+    if (lane == 0) {
+      mk[0] = m;
+      mk[1] = kterm;
+    }
+  } else {
+    const uint32_t* t = slice + (lane & (kCopies - 1));
+    const uint32_t* gap = shifts;  // x^(8 * 496): from one load's end to the next's start
+    // Lane l of warp w reads bytes 16 l + 512 j of the warp's run of each
+    // tile, j < kCrcLoads: a warp's load is 512 neighbouring bytes.
+    constexpr long long kLast = 512LL * (kCrcLoads - 1) + 16;  // first load's start to last's end
+#pragma unroll 1
+    for (long long ti = t0; ti < t1; ++ti) {
+      r = shift(shifts + 1024, r);  // on to this tile (r is 0 before the first)
+      const long long o = frame + ti * kCrcTile + warp * kCrcRun + 16 * lane;
+      if (o + kLast <= 0) continue;  // before the input: r stays 0
+      if (o >= 0 && o + kLast <= n) {
+        // Eight 16-byte loads ahead of the lookups, issued in order.
+        const uint4* p = reinterpret_cast<const uint4*>(buf + o);
+        uint4 x[kCrcAhead];
+#pragma unroll
+        for (int j = 0; j < kCrcAhead; ++j) x[j] = load_nc(p + 32 * j);
+#pragma unroll
+        for (int j = 0; j < kCrcLoads; ++j) {
+          r = step16(t, r, x[j % kCrcAhead]);
+          if (j + kCrcAhead < kCrcLoads) x[j % kCrcAhead] = load_nc(p + 32 * (j + kCrcAhead));
+          if (j + 1 < kCrcLoads) r = shift(gap, r);
+        }
+      } else {
+#pragma unroll 1
+        for (int j = 0; j < kCrcLoads; ++j) {
+          r = step16(t, r, load16(buf, n, o + 512 * j));
+          if (j + 1 < kCrcLoads) r = shift(gap, r);
+        }
+      }
     }
   }
+  // r ends at the end of the lane's last load of the CTA's last tile, 16
+  // bytes before the next lane's.  Level s of the tree moves the left of
+  // two runs of 2^s lanes (then of warps) on by the right's.
+  const uint32_t* tree = shifts + 2048;
+#pragma unroll
+  for (int s = 0; s < 5; ++s)
+    r = shift(tree + 1024 * s, r) ^ __shfl_down_sync(rxt::kFull, r, 1 << s);
+  if (lane == 0 && warp < kCrcThreads / 32) warp_v[warp] = r;
   __syncthreads();
-  const long long start =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kCrcSegment;
-  uint32_t v = 0;
-  if (start < n) {
-    const int len = n - start < kCrcSegment ? static_cast<int>(n - start) : kCrcSegment;
-    const uint8_t* p = buf + start;
-    const uint4* q = reinterpret_cast<const uint4*>(p);  // the wrapper aligns buf to 16
-    uint32_t c = 0xFFFFFFFFu;
-    const int n16 = len >> 4;
-    for (int i = 0; i < n16; ++i) {
-      const uint4 x = q[i];
-      c = step4(t, c ^ x.x);
-      c = step4(t, c ^ x.y);
-      c = step4(t, c ^ x.z);
-      c = step4(t, c ^ x.w);
+  if (warp == 0) {
+    r = lane < kCrcThreads / 32 ? warp_v[lane] : 0;
+#pragma unroll
+    for (int s = 5; s < kCrcLevels; ++s)
+      r = shift(tree + 1024 * s, r) ^ __shfl_down_sync(rxt::kFull, r, 1 << (s - 5));
+    if (lane == 0) {
+      const uint32_t v = mulmod(mk[0], r) ^ mk[1];
+      if (v != 0) atomicXor(out, v);
     }
-    for (int j = n16 << 4; j < len; ++j) c = t[0][(c ^ p[j]) & 0xFF] ^ (c >> 8);
-    c = ~c;
-    // Times x^(8 * after): one product a set bit of after.
-    unsigned long long after = static_cast<unsigned long long>(n - start - len);
-    for (int b = 0; after != 0; ++b, after >>= 1)
-      if (after & 1) c = mulmod(pw[b], c);
-    v = c;
   }
-  v = __reduce_xor_sync(rxt::kFull, v);
-  if ((threadIdx.x & 31) == 0 && v != 0) atomicXor(out, v);
 }
 
 }  // namespace
@@ -171,28 +516,46 @@ RXT_API int rxt_gather_rows(const void* buf, long long n, const void* offs, cons
   return cudaGetLastError();
 }
 
+// words, blocks and out 16-byte aligned (the wrapper's); ends: the B rows'
+// ends in the payload (the running sum of their wire lengths, the last one
+// total), raw: their flags.
 RXT_API int rxt_splice_payload(const void* words, int n_words, const void* blocks, int k,
-                               const void* lens, const void* byte_lens, const void* raw,
-                               const void* offs, void* out, long long total, int B, int device,
-                               void* stream) {
+                               long long B, const void* ends, const void* raw, void* out,
+                               long long total, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  splice_payload_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n_words, static_cast<const uint8_t*>(blocks), k,
-      static_cast<const int32_t*>(lens), static_cast<const int32_t*>(byte_lens),
-      static_cast<const bool*>(raw), static_cast<const long long*>(offs),
+  const long long grid = (total + kSpliceTile - 1) / kSpliceTile;
+  if (grid == 0 || B == 0) return cudaSuccess;
+  splice_payload_kernel<<<static_cast<unsigned>(grid), kSpliceThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), n_words, static_cast<const uint8_t*>(blocks), k, B,
+      static_cast<const long long*>(ends), static_cast<const bool*>(raw),
       static_cast<uint8_t*>(out), total);
   return cudaGetLastError();
 }
 
-RXT_API int rxt_crc32(const void* buf, long long n, const void* pow8, void* out, int device,
+// Zeroes out, then XORs the CRC of buf's n bytes (any alignment) into it.
+RXT_API int rxt_crc32(const void* buf, long long n, const void* consts, void* out, int device,
                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const long long segments = (n + kCrcSegment - 1) / kCrcSegment;
-  const int grid = static_cast<int>((segments + kThreads - 1) / kThreads);
-  crc32_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(buf), n, static_cast<const uint32_t*>(pow8),
-      static_cast<uint32_t*>(out));
+  const auto s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, 4, s);
+  if (err != cudaSuccess || n <= 0) return err;
+  err = cudaFuncSetAttribute(crc32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kCrcSmem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const auto b = reinterpret_cast<unsigned long long>(buf);
+  const unsigned long long end16 = (b + n + 15) & ~15ULL;
+  const long long n_tiles =
+      (static_cast<long long>(end16 - (b & ~15ULL)) + kCrcTile - 1) / kCrcTile;
+  const long long frame = static_cast<long long>(end16 - b) - n_tiles * kCrcTile;
+  const long long per_cta = (n_tiles + 2 * sms - 1) / (2 * sms);
+  const long long grid = (n_tiles + per_cta - 1) / per_cta;
+  crc32_kernel<<<static_cast<unsigned>(grid), kCrcBlock, kCrcSmem, s>>>(
+      static_cast<const uint8_t*>(buf), n, static_cast<const uint32_t*>(consts), frame, n_tiles,
+      static_cast<int>(per_cta), static_cast<int>(end16 - (b + n)), static_cast<uint32_t*>(out));
   return cudaGetLastError();
 }

@@ -34,9 +34,9 @@ from .ops.encode_m import encode_blocks_m, encode_blocks_m_plain
 from .ops.generic import (TorchModel, decode_blocks_generic, dense_torch_model,
                           encode_blocks_generic, make_generic_coders, static_torch_model)
 from .ops.model import model_lohi, model_lohi_plain, precompute_encode_model
-from .ops.staging import (CRC_SEGMENT, crc32, crc32_plain, gather_rows, gather_rows_plain,
-                          launch_crc32, launch_gather_rows, launch_splice_payload, splice_payload,
-                          splice_payload_plain)
+from .ops.staging import (CRC_SEGMENT, CRC_THREADS, crc32, crc32_plain, gather_rows,
+                          gather_rows_plain, launch_crc32, launch_gather_rows,
+                          launch_splice_payload, splice_payload, splice_payload_plain, splice_rows)
 from .params import Parameters
 from .testdata import golden_input, incompressible, text_like
 
@@ -84,10 +84,13 @@ OPS_PER_SYMBOL = {
 }
 # Integer operations a byte the staging kernels place: an index, a compare
 # and a shift or select (S1, S2); the table-driven CRC's xor, mask,
-# lookup and shift (S3).  None of the three has a PyTorch call that
+# lookup and shift (S3).  S3's prefixes checked against zlib: around its
+# segment, a warp's 32 segments and a CTA's tile.  None of the three has a PyTorch call that
 # computes it (a ragged gather, the payload splice, CRC-32), so each
 # library time is None too.
 OPS_PER_BYTE = {"gather_rows": 3, "splice_payload": 3, "crc32": 4}
+CRC_EDGES = (0, 1, CRC_SEGMENT - 1, CRC_SEGMENT, CRC_SEGMENT + 1, 32 * CRC_SEGMENT + 1,
+             CRC_THREADS * CRC_SEGMENT - 1, CRC_THREADS * CRC_SEGMENT + 1)
 ROW_BYTES = 4 * 258  # the int32 initial row
 
 
@@ -111,19 +114,42 @@ def plain_run(fn, timed: bool):
     return out, start.elapsed_time(end)
 
 
+# Cycles the card sleeps a timed run before its first event: the host
+# queues the runs meanwhile, so a kernel shorter than its launch's host
+# work is timed back to back, not at the host's pace.
+SLEEP_CYCLES_PER_RUN = 400_000
+
+
 def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs (CUDA events
+    after a sleep kernel that lets the host queue them; a ``fn`` that waits
+    for the card is timed at its own pace)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_RUN * reps)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def call_ms(fn, reps: int = 3, warmup: int = 1) -> float:
+    """Mean wall milliseconds of ``fn()`` and a wait for the card, over
+    ``reps`` runs: a wrapper call with its host work, until its result is
+    there."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 class KernelInputs:
@@ -425,18 +451,19 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
     for ``data`` at the shipped defaults (tpu_wide, delta 16, the prior),
     in one lane chunk each way; tolerance 0.
 
-    S3 (``crc32``): the input, and its prefixes of 0, 1, ``CRC_SEGMENT``
-    - 1, ``CRC_SEGMENT``, ``CRC_SEGMENT`` + 1 and 5 ``CRC_SEGMENT`` + 3
-    bytes, each also equal to ``zlib.crc32``.  S2 (``splice_payload``):
-    K1 -> K2 over the input's blocks in one launch, the raw rule, and the
-    payload, which must also be the archive's.  S1 (``gather_rows``):
+    S3 (``crc32``): the input, its prefixes of ``CRC_EDGES`` bytes and
+    its tail from 1, 7 and 15 bytes in, each also equal to
+    ``zlib.crc32``.  S2 (``splice_payload``): K1 -> K2 over the input's
+    blocks in one launch, the raw rule, and the payload, which must also
+    be the archive's.  S1 (``gather_rows``):
     every lane of the archive sorted by coded length, as ``decode``
     stages them (words; they must also be K2's words), and the raw
     blocks' rows (bytes; they must also be the input's blocks).  Returns
     per kernel ``max_abs_err``, ``ms`` (the kernel's launch alone, the
-    mean of ``reps``, CUDA events; S1's in word mode, ``ms_bytes`` in byte
-    mode, None without raw blocks), ``ms_call`` (the wrapper with its
-    checks and, for S3, the wait for its result), ``plain_ms`` (one run,
+    mean of ``reps``, CUDA events, :func:`cuda_ms`; S1's in word mode,
+    ``ms_bytes`` in byte mode, None without raw blocks), ``ms_call`` (the
+    wrapper with its checks until its result is on the card, wall clock,
+    :func:`call_ms`), ``plain_ms`` (one run,
     timed when ``time_plain`` on the card) and the bound of what it moves
     (:func:`bound`); and ``raw_rows``, the raw blocks."""
     dev = torch.device(device)
@@ -453,41 +480,45 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
     arch = api._host_u8(archive).to(dev)
     out = {}
 
-    def kernel_ms(fn):
-        return cuda_ms(fn, reps) if reps and dev.type == "cuda" else None
+    def kernel_ms(fn, timer=cuda_ms):
+        return timer(fn, reps) if reps and dev.type == "cuda" else None
 
     flat = x.syms.view(-1)[: len(data)]
-    for m in (0, 1, CRC_SEGMENT - 1, CRC_SEGMENT, CRC_SEGMENT + 1, 5 * CRC_SEGMENT + 3):
+    for m in CRC_EDGES:
         m = min(m, len(data))
         want = zlib.crc32(data[:m])
         _require(crc32(flat[:m]) == crc32_plain(flat[:m]) == want, f"crc32 differs at {m} bytes")
+    for a in (1, 7, 15):
+        _require(crc32(flat[a:]) == zlib.crc32(data[a:]), f"crc32 differs {a} bytes in")
     got = crc32(flat)
     plain, plain_ms = plain_run(lambda: crc32_plain(flat), timed)
     _require(got == plain == header.crc32,
              f"crc32 {got:#x}, plain {plain:#x}, archive {header.crc32:#x}")
-    scratch = torch.zeros(1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(1, dtype=torch.int32, device=dev)
     out["crc32"] = {"max_abs_err": abs(got - plain),
                     "ms": kernel_ms(lambda: launch_crc32(flat, scratch)),
-                    "ms_call": kernel_ms(lambda: crc32(flat)), "plain_ms": plain_ms,
+                    "ms_call": kernel_ms(lambda: crc32(flat), call_ms), "plain_ms": plain_ms,
                     **bound(len(data) + 4, OPS_PER_BYTE["crc32"] * len(data))}
 
     words, bl, ovf = encode_blocks_ranked(x.syms, x.lens, x.init_cum, p, x.n_words, d)
     raw = ovf | (bl >= x.lens)
-    wire = torch.where(raw, x.lens, bl).to(torch.int64)
-    total = int(wire.sum())
-    args = (words, x.syms, x.lens, bl, raw, torch.cumsum(wire, 0) - wire, total)
+    head = torch.stack([torch.where(raw, x.lens, bl), raw.to(torch.int32)]).cpu()
+    args = (words, x.syms, head[1].bool(), head[0])
+    total = int(args[3].sum(dtype=torch.int64))
     pay = splice_payload(*args)
+    rows = splice_rows(*args[2:], dev)
     pay_p, plain_ms = plain_run(lambda: splice_payload_plain(*args), timed)
     err = _max_abs(pay, pay_p)
     _require(err == 0, f"splice_payload differs from its plain version (max |diff| {err})")
     stored = torch.frombuffer(bytearray(archive[len(archive) - total :]), dtype=torch.uint8)
     _require(torch.equal(pay.cpu(), stored), "splice_payload differs from the archive's payload")
     out["splice_payload"] = {"max_abs_err": err,
-                             "ms": kernel_ms(lambda: launch_splice_payload(*args[:6], pay_p)),
-                             "ms_call": kernel_ms(lambda: splice_payload(*args)),
+                             "ms": kernel_ms(lambda: launch_splice_payload(words, x.syms, *rows,
+                                                                           pay_p)),
+                             "ms_call": kernel_ms(lambda: splice_payload(*args), call_ms),
                              "plain_ms": plain_ms,
-                             **bound(2 * total + 17 * b, OPS_PER_BYTE["splice_payload"] * total)}
-    del pay, pay_p, stored
+                             **bound(2 * total + 9 * b, OPS_PER_BYTE["splice_payload"] * total)}
+    del pay, pay_p, stored, rows
 
     sel = lanes.order
     staged, _ = api._stage_lanes(arch, header, lanes, sel)
@@ -505,7 +536,7 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
     moved = int(lens_o.sum())
     out["gather_rows"] = {"max_abs_err": err,
                           "ms": kernel_ms(lambda: launch_gather_rows(*args[:3], staged_p, True)),
-                          "ms_call": kernel_ms(lambda: gather_rows(*args)),
+                          "ms_call": kernel_ms(lambda: gather_rows(*args), call_ms),
                           "plain_ms": plain_ms, "wcap": wcap,
                           **bound(moved + 16 * b + 4 * b * wcap,
                                   OPS_PER_BYTE["gather_rows"] * 4 * b * wcap)}

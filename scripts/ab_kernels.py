@@ -1,4 +1,4 @@
-"""Device time of the port's five kernels for several checkouts, in turns on one card.
+"""Device time of the port's kernels for several checkouts, in turns on one card.
 
     python3 scripts/ab_kernels.py DIR [DIR ...] [--reps 5]
 
@@ -11,11 +11,23 @@ of 4096 (``cuda_checks.phase3_data``, seed 7, its phase 3) and the main
 path's 16384 blocks of 4096 (64 MiB of ``testdata.mixed``, seed 2024);
 tpu_wide, delta 16, the warm-start prior.  K1 feeds K2, K2's streams feed
 K3 on lanes sorted by coded length (the main path's staging), and K4 and
-K5 code the symbols.  Every process prints one JSON line with the times
-and a digest of each kernel's outputs; every checkout's digests must equal
-the first one's (the same bytes).  Then per checkout the median time of
-each kernel at each shape, in milliseconds.  Compare versions only within
-one call: cards and hosts differ between calls.
+K5 code the symbols.  The staging kernels S2 (``splice_payload``) and S3
+(``crc32``) run through each checkout's own
+``cuda_checks.compare_staging`` (which holds them to their plain versions)
+at the main path's 16384 blocks and at an encode chunk's 65536 blocks of
+4096 (256 MiB of ``testdata.mixed``, seed 2024): the kernel's launch
+alone and a call of its wrapper with its checks (``_call``).  Both
+checkouts are timed alike by this script's own timers, put in place of
+their ``cuda_checks`` timers: a kernel on the card's clock after a sleep
+kernel that lets the host queue its runs (so a kernel shorter than its
+launch's host work is timed back to back), a wrapper call by the wall
+clock until its result is on the card.  Every
+process prints one JSON line with the times and a digest of each kernel's
+outputs (for S2 and S3 the archive of the input, which holds the payload
+and the CRC); every checkout's digests must equal the first one's (the
+same bytes).  Then per checkout the median time of each kernel at each
+shape, in milliseconds.  Compare versions only within one call: cards and
+hosts differ between calls.
 """
 
 from __future__ import annotations
@@ -26,9 +38,63 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
-SHAPES = ("1024x4096", "16384x4096")
+SHAPES = ("1024x4096", "16384x4096", "65536x4096")
+STAGING = ("splice_payload", "crc32")
+
+
+def device_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device ms of ``fn()``: CUDA events around ``reps`` runs queued
+    behind a sleep kernel."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(400_000 * reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean wall ms of ``fn()`` and a wait for the card."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def time_alike(cuda_checks) -> None:
+    """Put one timer in place of a checkout's ``cuda_checks.cuda_ms`` (and
+    ``call_ms``, where it has one): a run through one of its ``launch_*``
+    entries (a kernel alone) is timed by :func:`device_ms`, any other (a
+    wrapper call) by :func:`wall_ms`."""
+    alone = {"hit": False}
+    for name in ("launch_crc32", "launch_splice_payload", "launch_gather_rows"):
+        def marked(*args, _f=getattr(cuda_checks, name)):
+            alone["hit"] = True
+            return _f(*args)
+        setattr(cuda_checks, name, marked)
+
+    def timer(fn, reps=3, warmup=1):
+        alone["hit"] = False
+        fn()  # the warm-up run tells which
+        return (device_ms if alone["hit"] else wall_ms)(fn, reps, warmup=0)
+
+    cuda_checks.cuda_ms = cuda_checks.call_ms = timer
 
 
 def worker(root: Path, reps: int) -> None:
@@ -70,7 +136,7 @@ def worker(root: Path, reps: int) -> None:
             "encode_fused": lambda: encode_blocks_fused(*sym),
             "encode_m": lambda: encode_blocks_m(*sym),
         }
-        times[shape] = {name: cuda_checks.cuda_ms(fn, reps) for name, fn in runs.items()}
+        times[shape] = {name: device_ms(fn, reps) for name, fn in runs.items()}
         h = {}
         for name, fn in runs.items():
             out = fn()
@@ -78,6 +144,16 @@ def worker(root: Path, reps: int) -> None:
                 t.cpu().numpy().tobytes() for t in (out if isinstance(out, tuple) else (out,))
             )).hexdigest()[:16]
         digests[shape] = h
+    inputs["65536x4096"] = testdata.mixed(256 << 20, 2024)
+    time_alike(cuda_checks)
+    for shape in SHAPES[1:]:
+        res = cuda_checks.compare_staging(inputs[shape], dev, k, time_plain=False, reps=reps)
+        times.setdefault(shape, {})
+        for name in STAGING:
+            times[shape][name] = res[name]["ms"]
+            times[shape][name + "_call"] = res[name]["ms_call"]
+        arch = api.encode(inputs[shape], block_size=k, device=dev)
+        digests.setdefault(shape, {})["archive"] = hashlib.sha256(arch).hexdigest()[:16]
     print(json.dumps({"root": str(root), "device": torch.cuda.get_device_name(0),
                       "ptxas": _build.resource_usage(), "ms": times, "digests": digests}))
 

@@ -7,6 +7,7 @@ Run on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -439,10 +440,9 @@ def test_gather_and_splice_kernels_at_their_edges(cuda_device):
     klens = torch.from_numpy(rng.integers(1, k + 1, b)).to(torch.int32)
     byte_lens = torch.from_numpy(rng.integers(0, 4 * n_words + 1, b)).to(torch.int32)
     raw = torch.from_numpy(rng.integers(0, 2, b).astype(bool))
-    wire = torch.where(raw, klens, byte_lens).to(torch.int64)
-    args = (words, blocks, klens, byte_lens, raw, torch.cumsum(wire, 0) - wire)
-    got = staging.splice_payload(*(a.to(cuda_device) for a in args), int(wire.sum()))
-    assert torch.equal(got.cpu(), staging.splice_payload(*args, int(wire.sum())))
+    wire = torch.where(raw, klens, byte_lens)
+    got = staging.splice_payload(words.to(cuda_device), blocks.to(cuda_device), raw, wire)
+    assert torch.equal(got.cpu(), staging.splice_payload(words, blocks, raw, wire))
     counts = redux_tpu_torch.launch_counts()
     assert (counts["gather_rows"], counts["splice_payload"]) == (3, 1), counts
 
@@ -544,3 +544,133 @@ def test_decode_device_memory_is_flat_over_chunks(cuda_device, monkeypatch):
         assert 0 < peak <= bound, (n_ranges, peak, bound)
         peaks.append(peak)
     assert abs(peaks[1] - peaks[0]) <= 0.05 * peaks[0], peaks
+
+
+SEG, TILE = 256, 256 * 512  # ops.staging.CRC_SEGMENT, CRC_SEGMENT * CRC_THREADS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [SEG - 1, SEG, SEG + 1, 32 * SEG - 1, 32 * SEG, 32 * SEG + 1,
+                               TILE - 1, TILE, TILE + 1, 133 * TILE + 5])
+def test_crc32_kernel_at_segment_warp_and_tile_edges(cuda_device, n):
+    """S3 around its 256-byte segment, a warp's 32 segments, a CTA's 128
+    KiB tile and past one tile a CTA (133 tiles), on views 0-15 bytes in:
+    equal to its plain version and to ``zlib.crc32``; one launch a call."""
+    import zlib
+
+    import numpy as np
+
+    import redux_tpu_torch
+    from redux_tpu_torch.ops import staging
+
+    assert (staging.CRC_SEGMENT, staging.CRC_SEGMENT * staging.CRC_THREADS) == (SEG, TILE)
+    data = np.random.default_rng(n).integers(0, 256, n + 16, dtype=np.uint8)
+    t = torch.from_numpy(data).to(cuda_device)
+    redux_tpu_torch.reset_launch_counts()
+    for a in range(16):
+        want = zlib.crc32(data[a : a + n].tobytes())
+        assert staging.crc32(t[a : a + n]) == want, a
+    assert staging.crc32_plain(t[3 : 3 + n]) == zlib.crc32(data[3 : 3 + n].tobytes())
+    assert redux_tpu_torch.launch_counts()["crc32"] == 16
+
+
+@pytest.mark.cuda
+def test_crc32_kernel_at_256_mib(cuda_device):
+    """S3 over 256 MiB (an encode chunk) and a view 5 bytes in, against
+    ``zlib.crc32``; ``crc32_device`` into a slot of a tensor leaves the
+    same bits there without a wait, and the slots combine as ``api``
+    combines its chunks."""
+    import zlib
+
+    import numpy as np
+
+    import redux_tpu_torch
+    from redux_tpu_torch.ops import staging
+
+    n = 256 << 20
+    data = np.random.default_rng(256).integers(0, 256, n, dtype=np.uint8)
+    t = torch.from_numpy(data).to(cuda_device)
+    redux_tpu_torch.reset_launch_counts()
+    assert staging.crc32(t) == zlib.crc32(data)
+    assert staging.crc32(t[5:]) == zlib.crc32(data[5:])
+    slots = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    staging.crc32_device(t[: n // 3], slots[0:1])
+    staging.crc32_device(t[n // 3 :], slots[1:2])
+    assert redux_tpu_torch.launch_counts()["crc32"] == 4
+    crc = staging.combine_crcs(slots.cpu().to(torch.int64) & 0xFFFFFFFF,
+                               torch.tensor([n - n // 3, 0]))
+    assert crc == zlib.crc32(data)
+    with pytest.raises(ValueError):  # a slot of two ints: refused before a launch
+        staging.crc32_device(t, slots)
+    assert redux_tpu_torch.launch_counts()["crc32"] == 4
+
+
+def _splice_case(rng, b, k, n_words, wire, raw):
+    blocks = torch.from_numpy(rng.integers(0, 256, (b, k), dtype=np.uint8))
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (b, n_words))).to(torch.int32)
+    cap = np.where(raw, k, 4 * n_words)
+    return (words, blocks, torch.from_numpy(raw),
+            torch.from_numpy(np.minimum(wire, cap).astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["tiny_rows", "all_raw", "all_coded", "ragged_1022",
+                                   "65536_blocks"])
+def test_splice_kernel_shapes(cuda_device, shape):
+    """S2 against its plain version, tolerance 0: runs of rows of 0-3
+    bytes (a 16-byte piece across several rows; a total that is not a
+    multiple of 16), all raw, all coded, 1022-byte blocks, and 65,536
+    blocks of 4096 (an encode chunk, 0-4160 bytes a row); one launch a
+    call."""
+    import numpy as np
+
+    import redux_tpu_torch
+    from redux_tpu_torch.ops import staging
+
+    rng = np.random.default_rng(len(shape))
+    b, k, n_words = {"tiny_rows": (5000, 64, 20), "all_raw": (512, 4096, 1040),
+                     "all_coded": (512, 4096, 1040), "ragged_1022": (301, 1022, 260),
+                     "65536_blocks": (65536, 4096, 1040)}[shape]
+    wire = {"tiny_rows": rng.integers(0, 4, b)}.get(shape, rng.integers(0, 4 * n_words + 1, b))
+    raw = {"all_raw": np.ones(b, bool), "all_coded": np.zeros(b, bool)}.get(
+        shape, rng.integers(0, 2, b).astype(bool))
+    words, blocks, raw_t, wire_t = _splice_case(rng, b, k, n_words, wire, raw)
+    want = staging.splice_payload_plain(words.to(cuda_device), blocks.to(cuda_device), raw_t,
+                                        wire_t)
+    redux_tpu_torch.reset_launch_counts()
+    got = staging.splice_payload(words.to(cuda_device), blocks.to(cuda_device), raw_t, wire_t)
+    torch.cuda.synchronize(cuda_device)
+    assert redux_tpu_torch.launch_counts()["splice_payload"] == 1
+    assert got.shape == (int(wire_t.sum()),)
+    if shape == "tiny_rows":
+        assert got.shape[0] % 16 != 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_splice_kernel_refuses_malformed_rows(cuda_device):
+    """A negative length, a coded stream past K2's buffer, a raw block past
+    ``k``, or the lengths on the card instead of the host: refused before
+    any launch (InvalidInputError, or ValueError for the device)."""
+    import numpy as np
+
+    import redux_tpu_torch
+    from redux_tpu_torch.errors import InvalidInputError
+    from redux_tpu_torch.ops import staging
+
+    rng = np.random.default_rng(9)
+    raw = np.array([True, False, False, True])
+    words, blocks, raw_t, wire_t = _splice_case(rng, 4, 64, 4, np.array([64, 16, 3, 1]), raw)
+    words, blocks = words.to(cuda_device), blocks.to(cuda_device)
+    redux_tpu_torch.reset_launch_counts()
+    for row, length in ((2, -1), (1, 17), (0, 65)):
+        bad = wire_t.clone()
+        bad[row] = length
+        with pytest.raises(InvalidInputError):
+            staging.splice_payload(words, blocks, raw_t, bad)
+    with pytest.raises(ValueError):
+        staging.splice_payload(words, blocks, raw_t, wire_t.to(cuda_device))
+    with pytest.raises(ValueError):  # int64 lengths: the header's are int32
+        staging.splice_payload(words, blocks, raw_t, wire_t.to(torch.int64))
+    assert redux_tpu_torch.launch_counts()["splice_payload"] == 0
+    assert staging.splice_payload(words, blocks, raw_t, wire_t).shape == (84,)

@@ -112,6 +112,46 @@ def test_crc32_equals_zlib(n):
     assert staging.crc32(torch.from_numpy(data)) == zlib.crc32(data.tobytes())
 
 
+TILE = SEG * staging.CRC_THREADS
+
+
+@pytest.mark.parametrize("n", [32 * SEG - 1, 32 * SEG, 32 * SEG + 1, TILE - 1, TILE, TILE + 1,
+                               3 * TILE + SEG + 5])
+def test_crc32_equals_zlib_at_warp_and_tile_edges(n):
+    """Around a warp's 32 segments and a CTA's tile (512 segments)."""
+    data = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+    assert staging.crc32(torch.from_numpy(data)) == zlib.crc32(data.tobytes())
+
+
+@pytest.mark.parametrize("start", range(1, 16))
+def test_crc32_of_views_1_to_15_bytes_in(start):
+    data = np.random.default_rng(start).integers(0, 256, 3 * SEG + 40, dtype=np.uint8)
+    t = torch.from_numpy(data)
+    assert staging.crc32(t[start:]) == zlib.crc32(data[start:].tobytes())
+    assert staging.crc32(t[start : start + SEG]) == zlib.crc32(data[start : start + SEG].tobytes())
+
+
+def test_crc32_device_on_the_cpu_combines_to_zlib():
+    """``crc32_device`` writes each piece's CRC into its slot of an int32
+    tensor (no wait on a card; the plain version here); the slots, read as
+    unsigned, combine to the whole's CRC as ``api`` combines its chunks."""
+    data = np.random.default_rng(11).integers(0, 256, 10 * SEG + 77, dtype=np.uint8)
+    bounds = [0, 1, SEG, 4 * SEG + 3, 10 * SEG + 77]
+    slots = torch.zeros(len(bounds) - 1, dtype=torch.int32)
+    t = torch.from_numpy(data)
+    for i, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        assert staging.crc32_device(t[a:b], slots[i : i + 1]) is not None
+    assert (slots < 0).any()  # a CRC past 2^31 reads as a negative int32
+    after = torch.tensor([len(data) - b for b in bounds[1:]])
+    assert staging.combine_crcs(slots.to(torch.int64) & 0xFFFFFFFF, after) == zlib.crc32(
+        data.tobytes())
+    one = staging.crc32_device(t)
+    assert one.shape == (1,) and one.dtype == torch.int32
+    assert int(one) & 0xFFFFFFFF == zlib.crc32(data.tobytes())
+    with pytest.raises(ValueError):
+        staging.crc32_device(t, torch.zeros(2, dtype=torch.int32))
+
+
 def test_crc32_of_a_view_and_of_text():
     """A view that starts at an odd offset, and skewed text, equal zlib's."""
     text = testdata.text_like(300_001, 4)
@@ -141,6 +181,128 @@ def test_pow8_table_squares_x8():
     assert len(table) == 64
 
 
+def _mul(a: int, b: int) -> int:
+    return int(staging._mulmod(a, torch.tensor([b], dtype=torch.int64))[0])
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_crc_shift_tables_multiply_as_mulmod(seed):
+    """Each shift table of the kernel's constants (the gap between a lane's
+    16-byte loads, 512 bytes apart; the gap from its last load of a tile to
+    its first of the next; the tree's levels, x^(8 * 16 * 2^s) between
+    lanes and x^(8 * 8 KiB * 2^s) between warps), read as four lookups,
+    multiplies as ``_mulmod`` by its constant; the tree's constants are
+    ``pow8_table``'s entries and x^(-8z) undoes x^(8z)."""
+    consts = torch.from_numpy(staging.crc_consts().astype(np.int64))
+    levels = staging.CRC_THREADS.bit_length() - 1
+    tables = consts[1024 : 1024 * (3 + levels)].view(2 + levels, 4, 256)
+    tile = staging.CRC_SEGMENT * staging.CRC_THREADS
+    loads = staging.CRC_SEGMENT // 16
+    mults = [staging.x8_power(496), staging.x8_power(tile - 512 * (loads - 1) - 16)]
+    dists = [16 << s for s in range(5)] + [32 * staging.CRC_SEGMENT << s for s in range(levels - 5)]
+    mults += [staging.x8_power(d) for d in dists]
+    assert mults[2:] == [staging.pow8_table()[d.bit_length() - 1] for d in dists]
+    v = torch.from_numpy(np.random.default_rng(seed).integers(0, 2**32, 500))
+    for table, a in zip(tables, mults):
+        assert torch.equal(staging.apply_shift(table, v), staging._mulmod(a, v))
+    pow8 = consts[-80:-16].tolist()
+    assert tuple(pow8) == staging.pow8_table()
+    for z, inv in enumerate(consts[-16:].tolist()):
+        assert _mul(inv, staging.x8_power(z)) == staging._ONE
+    assert torch.equal(consts[:1024].view(4, 256), staging.slicing_tables())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_crc_tree_combine_equals_combine_crcs(seed):
+    """Random data in equal segments (a short last one zero-padded, the
+    kernel's frame): their CRCs (register from 0) combined pairwise as a
+    tree through the level tables, then moved back over the padding by
+    x^(-8z), with the initial value's term, equal ``combine_crcs`` over the
+    same segments and ``zlib.crc32``."""
+    rng = np.random.default_rng(seed)
+    seg, n_seg = 32, 16
+    n = int(rng.integers(n_seg * seg - 15, n_seg * seg + 1))
+    data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    z = n_seg * seg - n
+    padded = data + bytes(z)
+    raw = [zlib.crc32(padded[i * seg : (i + 1) * seg], 0xFFFFFFFF) ^ 0xFFFFFFFF
+           for i in range(n_seg)]  # the register from 0: crc32 with init ~0 undone
+    tables = [staging.shift_table(staging.x8_power(seg << s)) for s in range(4)]
+    vals = torch.tensor(raw, dtype=torch.int64)
+    for table in tables:
+        vals = staging.apply_shift(table, vals[0::2]) ^ vals[1::2]
+    f0 = _mul(staging.inv8_table()[z], int(vals[0]))
+    crc = f0 ^ _mul(staging.x8_power(n), 0xFFFFFFFF) ^ 0xFFFFFFFF
+    assert crc == zlib.crc32(data)
+    pieces = [data[i : i + seg] for i in range(0, n, seg)]
+    after = [max(n - i - seg, 0) for i in range(0, n, seg)]
+    assert staging.combine_crcs(torch.tensor([zlib.crc32(p) for p in pieces]),
+                                torch.tensor(after)) == crc
+
+
+def _crc_kernel_model(data: bytes, align: int, segment: int, threads: int, ctas: int) -> int:
+    """``csrc/staging.cu::crc32_kernel`` and its entry step for step, at a
+    small segment and thread count, for ``data`` at an address ``align``
+    bytes past 16: the frame of tiles ending at the input's end rounded up
+    to 16, ``ceil(tiles / ctas)`` tiles a CTA, lane l of warp w reading
+    bytes ``16 l + 512 j`` of the warp's run of a tile, its register over
+    its loads with the gap tables between them, bytes outside the input as
+    zero, the tree over the lanes and the warps, and each CTA's product by
+    x^(8 after) (x^(-8z) for the last), CTA 0 adding the initial value's
+    term."""
+    consts = torch.from_numpy(staging.crc_consts(segment, threads).astype(np.int64))
+    levels = threads.bit_length() - 1
+    sl = consts[:1024].view(4, 256)
+    gap, gap_tile = consts[1024:2048].view(4, 256), consts[2048:3072].view(4, 256)
+    tree = consts[3072 : 3072 + 1024 * levels].view(levels, 4, 256)
+    tile, run, n = segment * threads, 32 * segment, len(data)
+    b = 1024 + align
+    end16 = (b + n + 15) & ~15
+    n_tiles = -(-(end16 - (b & ~15)) // tile)
+    frame, z = end16 - b - n_tiles * tile, end16 - (b + n)
+    per = -(-n_tiles // ctas)
+    buf = torch.from_numpy(np.frombuffer(data, np.uint8).astype(np.int64))
+    tid = torch.arange(threads)
+    first = (tid // 32) * run + 16 * (tid % 32)  # each thread's first load in a tile
+    crc = 0
+    for cta in range(-(-n_tiles // per)):
+        t0, t1 = cta * per, min(cta * per + per, n_tiles)
+        r = torch.zeros(threads, dtype=torch.int64)
+        for ti in range(t0, t1):
+            r = staging.apply_shift(gap_tile, r)
+            for j in range(segment // 16):
+                if j:
+                    r = staging.apply_shift(gap, r)
+                for q in range(0, 16, 4):
+                    pos = (frame + ti * tile + first + 512 * j + q)[:, None] + torch.arange(4)
+                    ok = (pos >= 0) & (pos < n)
+                    byte = torch.where(ok, buf[pos.clamp(0, max(n - 1, 0))] if n else 0, 0)
+                    x = r ^ (byte[:, 0] | byte[:, 1] << 8 | byte[:, 2] << 16 | byte[:, 3] << 24)
+                    r = (sl[3][x & 0xFF] ^ sl[2][(x >> 8) & 0xFF] ^ sl[1][(x >> 16) & 0xFF]
+                         ^ sl[0][x >> 24])
+        for s in range(levels):
+            r = staging.apply_shift(tree[s], r[0::2]) ^ r[1::2]
+        m = (staging.inv8_table()[z] if t1 == n_tiles
+             else staging.x8_power((n_tiles - t1) * tile - z))
+        crc ^= _mul(m, int(r[0]))
+        if cta == 0:
+            crc ^= _mul(staging.x8_power(n), 0xFFFFFFFF) ^ 0xFFFFFFFF
+    return crc
+
+
+@pytest.mark.parametrize("ctas", [1, 3])
+@pytest.mark.parametrize("align", [0, 1, 9, 15])
+def test_crc_kernel_algorithm_equals_zlib(align, ctas):
+    """The kernel's algorithm (``_crc_kernel_model``: 64 threads reading 32
+    bytes of a 2 KiB tile each) equals ``zlib.crc32`` at the load, warp,
+    tile and multi-CTA edges, 0-15 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(align * 7 + ctas)
+    for n in (1, 3, 4, 15, 16, 17, 511, 512, 513, 1023, 1024, 1025, 2047, 2048, 2049,
+              3 * 2048 + 700):
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        assert _crc_kernel_model(data, align, 32, 64, ctas) == zlib.crc32(data), n
+
+
 def _random_triple(rng, b, k, n_words):
     blocks = torch.from_numpy(rng.integers(0, 256, (b, k), dtype=np.uint8))
     words = torch.from_numpy(rng.integers(-2**31, 2**31, (b, n_words))).to(torch.int32)
@@ -157,9 +319,8 @@ def test_splice_payload_equals_build_archives_payload(seed):
     stream bytes, a raw block's first ``lens`` bytes)."""
     rng = np.random.default_rng(seed)
     words, blocks, lens, byte_lens, raw = _random_triple(rng, 40, 61, 9)
-    wire = torch.where(raw, lens, byte_lens).to(torch.int64)
-    got = staging.splice_payload(words, blocks, lens, byte_lens, raw,
-                                 torch.cumsum(wire, 0) - wire, int(wire.sum()))
+    wire = torch.where(raw, lens, byte_lens)
+    got = staging.splice_payload(words, blocks, raw, wire)
     coded = words_to_bytes(words).numpy()
     streams = [blocks[i, : lens[i]].numpy().tobytes() if raw[i]
                else coded[i, : byte_lens[i]].tobytes() for i in range(40)]
@@ -187,33 +348,52 @@ def test_splice_payload_equals_the_references_payload():
     words, bl, ovf = encode_blocks_ranked(blocks, lens, ic, p, n_words, 16)
     raw = ovf | (bl >= lens)
     assert raw.tolist() == list(header.block_raw) and raw.sum() >= 3
-    wire = torch.where(raw, lens, bl).to(torch.int64)
-    got = staging.splice_payload(words, blocks, lens, bl, raw, torch.cumsum(wire, 0) - wire,
-                                 int(wire.sum()))
+    wire = torch.where(raw, lens, bl)
+    got = staging.splice_payload(words, blocks, raw, wire)
     assert got.numpy().tobytes() == ref[len(ref) - int(wire.sum()) :]
 
 
 def test_splice_payload_refuses_a_stream_past_the_buffer(monkeypatch):
     """A coded block whose byte length passes K2's ``4 * n_words``-byte
     buffer raises (the encoder's bound is never passed silently); the same
-    length on a raw block within ``k`` is fine."""
+    length on a raw block within ``k`` is fine, one past ``k`` is not, and
+    neither is a negative length."""
     rng = np.random.default_rng(7)
     words, blocks, lens, byte_lens, raw = _random_triple(rng, 4, 64, 4)
     raw[:] = torch.tensor([False, True, False, False])
     byte_lens[1] = 17
     lens[1] = 64
-    wire = torch.where(raw, lens, byte_lens).to(torch.int64)
-    offs = torch.cumsum(wire, 0) - wire
-    assert staging.splice_payload(words, blocks, lens, byte_lens, raw, offs,
-                                  int(wire.sum())).shape == (int(wire.sum()),)
-    byte_lens[0] = 17
-    wire = torch.where(raw, lens, byte_lens).to(torch.int64)
+    wire = torch.where(raw, lens, byte_lens)
+    assert staging.splice_payload(words, blocks, raw, wire).shape == (int(wire.sum()),)
     monkeypatch.setattr(staging, "splice_payload_plain", _refuse)
-    with pytest.raises(InvalidInputError):
-        staging.splice_payload(words, blocks, lens, byte_lens, raw,
-                               torch.cumsum(wire, 0) - wire, int(wire.sum()))
-    with pytest.raises(InvalidInputError):  # a total too short for the offsets
-        staging.splice_payload(words, blocks, lens, byte_lens, raw, offs, 3)
+    for row, length in ((0, 17), (1, 65), (2, -1)):
+        bad = wire.clone()
+        bad[row] = length
+        with pytest.raises(InvalidInputError):
+            staging.splice_payload(words, blocks, raw, bad)
+
+
+def test_splice_payload_short_rows_and_its_row_table():
+    """Runs of rows of 0-3 bytes (a 16-byte piece of the payload spans
+    several) equal a slice loop; ``splice_rows`` gives each row's end, the
+    running sum of the lengths, and its raw flag; lengths on the card's
+    side or of another type are refused (they are the host's)."""
+    rng = np.random.default_rng(5)
+    words, blocks, lens, byte_lens, raw = _random_triple(rng, 500, 8, 2)
+    wire = torch.from_numpy(rng.integers(0, 4, 500).astype(np.int32))
+    got = staging.splice_payload(words, blocks, raw, wire)
+    coded = words_to_bytes(words).numpy()
+    want = b"".join(blocks[i, : wire[i]].numpy().tobytes() if raw[i]
+                    else coded[i, : wire[i]].tobytes() for i in range(500))
+    assert got.numpy().tobytes() == want and got.shape[0] % 16
+    ends, flags = staging.splice_rows(raw, wire, torch.device("cpu"))
+    assert ends.dtype == torch.int64 and ends.tolist() == np.cumsum(wire.numpy()).tolist()
+    assert torch.equal(flags, raw)
+    for bad in (wire.to(torch.int64), wire.view(1, -1)):
+        with pytest.raises(ValueError):
+            staging.splice_payload(words, blocks, raw, bad)
+    with pytest.raises(ValueError):
+        staging.splice_payload(words, blocks, raw.to(torch.int32), wire)
 
 
 @pytest.mark.parametrize("params,delta,k", [(None, 16, 256), (Parameters.default(), 7, 512)])
