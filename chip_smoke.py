@@ -32,8 +32,9 @@ against their plain versions and the native serial coder, the ``api``
 route over several lane chunks and the generic coders.  Phase 11 runs at
 multi-GB size: 2 GiB + 1 MiB of ``testdata.mixed`` through ``api.encode``
 -> ``decode`` (nine lane chunks each way, one launch each of K1 and K2 a
-chunk and of K3 a range of blocks, the decode's device memory held under
-two ranges' worth, two chunks held to the plain versions, S1-S3 held to
+chunk and of K3 a range of blocks, the encode's device memory held under
+its reckoning from one chunk's shapes and the decode's under two ranges'
+worth, two chunks held to the plain versions, S1-S3 held to
 theirs on one 65,536-lane chunk), the bench on 256 MiB of
 ``text_like`` and on the first 1 GiB of the big input, the CLI over 512
 MiB (two chunks each way at (8,30,32), one held to the plain versions),
@@ -381,6 +382,12 @@ def _peak_rss_gib():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
 
 
+def _rss_gib():
+    """This process's resident set now, GiB (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / (1 << 30)
+
+
 def _peak_device_gib(dev):
     """The allocator's peak since its last reset, GiB, and a new reset."""
     peak = torch.cuda.max_memory_allocated(dev) / (1 << 30)
@@ -394,13 +401,14 @@ def _at_size(dev, data):
     each way: K1 and K2 once a lane chunk, K3 once a range of blocks with
     coded blocks.  Byte-equal (``decode`` verifies the crc); the middle
     and the last chunk are held to the plain versions
-    (``cuda_checks.check_chunk_streams``).  The decode's peak device
-    memory must stay under two chunk slots
-    (``cuda_checks.decode_memory_bound``) and under the encode's.  Prints
-    wall clock (the decode's from a call without ``_timings``, whose marks
-    wait for the card), host phases (the decode's from a second call, with
-    them), peak device memory and the rise of the peak host RSS each
-    way."""
+    (``cuda_checks.check_chunk_streams``).  The encode's peak device
+    memory must stay under its reckoning from one chunk's shapes
+    (``cuda_checks.encode_memory_bound``), the decode's under two chunk
+    slots (``cuda_checks.decode_memory_bound``) and under the encode's.
+    Prints wall clock (the decode's from a call without ``_timings``, whose
+    marks wait for the card), host phases (the decode's from a second call,
+    with them), peak device memory, the host RSS the encode holds at its
+    end and the rise of the peak host RSS each way."""
     import numpy as np
 
     import redux_tpu_torch
@@ -413,7 +421,8 @@ def _at_size(dev, data):
     n_enc, n_dec = -(-n_blocks // enc_chunk), -(-n_blocks // dec_chunk)
     _sync(dev)
     _peak_device_gib(dev)
-    rss0 = _peak_rss_gib()
+    before_enc = torch.cuda.memory_allocated(dev) / (1 << 30)
+    rss0, rss_now0 = _peak_rss_gib(), _rss_gib()
     redux_tpu_torch.reset_launch_counts()
     t_enc, t_dec = {}, {}
     t0 = time.perf_counter()
@@ -421,7 +430,12 @@ def _at_size(dev, data):
     _sync(dev)
     t1 = time.perf_counter()
     enc_counts = redux_tpu_torch.launch_counts()
-    dev_enc, rss1 = _peak_device_gib(dev), _peak_rss_gib()
+    dev_enc, rss1, rss_now1 = _peak_device_gib(dev), _peak_rss_gib(), _rss_gib()
+    enc_bound = cuda_checks.encode_memory_bound(len(data), k, api.Parameters.tpu_wide()) / (1 << 30)
+    if dev_enc - before_enc > enc_bound:
+        raise AssertionError(f"at size: encode's peak device memory {dev_enc:.3f} GiB "
+                             f"({before_enc:.3f} GiB before it) passes its bound "
+                             f"{enc_bound:.3f} GiB")
     before = torch.cuda.memory_allocated(dev) / (1 << 30)
     t_d = time.perf_counter()
     back = api.decode(arch, device=dev)
@@ -469,11 +483,15 @@ def _at_size(dev, data):
           f"(the decode without _timings; {t_dec_timed:.3f} s with them)")
     print("at size: encode phases s " + json.dumps({k: round(v, 4) for k, v in t_enc.items()}))
     print("at size: decode phases s " + json.dumps({k: round(v, 4) for k, v in t_dec.items()}))
-    print(f"at size: peak device memory {dev_enc:.3f} GiB encode, {dev_dec:.3f} GiB decode "
+    print(f"at size: peak device memory {dev_enc:.3f} GiB encode ({before_enc:.3f} GiB "
+          f"allocated before it: a rise of {dev_enc - before_enc:.3f} GiB against its bound "
+          f"{enc_bound:.3f} GiB), {dev_dec:.3f} GiB decode "
           f"({before:.3f} GiB allocated before it: a rise of {dev_dec - before:.3f} GiB against "
           f"the two-slot bound {bound:.3f} GiB, {coded} ranges with coded blocks, {with_raw} "
           f"with raw blocks); peak host RSS {rss0:.3f} GiB before, +{rss1 - rss0:.3f} GiB by "
-          f"the encode's end, +{rss2 - rss0:.3f} GiB by the decode's end")
+          f"the encode's end, +{rss2 - rss0:.3f} GiB by the decode's end; host RSS "
+          f"{rss_now0:.3f} GiB before the encode, {rss_now1:.3f} GiB at its end (+"
+          f"{rss_now1 - rss_now0:.3f} GiB with the archive's {len(arch) / (1 << 30):.3f} GiB)")
     _check_chunks("at size", data, arch, dev, [n_enc // 2, n_enc - 1])
 
 

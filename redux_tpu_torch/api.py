@@ -18,12 +18,16 @@ with the staging kernels of ``ops.staging`` (S1 row gather, S2 payload
 splice, S3 crc32) and ``torch.bincount`` for the histogram.  ``encode``
 reads the input in lane chunks twice (histogram and crc, then the
 kernels; an input of one chunk crosses the bus once) and fetches each
-chunk's payload; the chunks' CRCs stay on the device until all are
-queued.  ``decode`` works a range of blocks at a time: the
-range's slice of the archive goes up, its output comes back into the
-result's memory while the next range decodes, so its device memory is
-two ranges' worth whatever the input's size.  Only the header, the
-prior's 256 counts and the lanes' order are host work.
+chunk's payload straight to its offset in the returned ``bytes``, the
+header written in front of it at the end; the chunks' CRCs stay on the
+device until all are queued.  ``decode`` works a range of blocks at a
+time: the range's slice of the archive goes up, its output comes back
+into the result's memory while the next range decodes, so its device
+memory is two ranges' worth whatever the input's size.  On the card
+every upload goes through pinned slots on a side stream, the next
+chunk's while the current one's kernels run (:class:`_Upload`), and
+every fetch likewise (:class:`_Fetch`).  Only the header, the prior's
+256 counts and the lanes' order are host work.
 
 The device defaults to the card: ``device="cuda"`` runs the kernels, and
 with no CUDA device a call raises RuntimeError before any kernel work
@@ -208,6 +212,202 @@ class _Clock:
         self.t0 = now
 
 
+_new_pybytes = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
+_pybytes_data = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.c_void_p)(
+    ("PyBytes_AsString", ctypes.pythonapi))
+_pybytes_resize = ctypes.PYFUNCTYPE(ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.c_ssize_t)(("_PyBytes_Resize", ctypes.pythonapi))
+_py_decref = ctypes.PYFUNCTYPE(None, ctypes.c_void_p)(("Py_DecRef", ctypes.pythonapi))
+
+
+class _Output:
+    """A new ``bytes`` of at most ``n`` >= 1 bytes that a call writes in
+    place through ``view`` (a writable uint8 CPU tensor over its memory)
+    and returns at its final length with :meth:`result`: the one full-size
+    copy of a call's output on the host.
+
+    CPython's ``PyBytes_FromStringAndSize(NULL, n)`` makes the object.  It
+    is held here as a bare pointer, its one reference, because
+    ``_PyBytes_Resize`` refuses an object that anything else holds; for a
+    block this size glibc's ``realloc`` shrinks it where it lies (pages
+    past the end were never touched).  A failing resize frees the object
+    and raises.  Use it as a context manager: the object is freed if the
+    call raises before :meth:`result`.
+    """
+
+    def __init__(self, n: int):
+        if n < 1:
+            raise ValueError("n must be >= 1")
+        self.n = n
+        self._ptr = ctypes.c_void_p(_new_pybytes(None, n))
+        self.view = torch.frombuffer(
+            (ctypes.c_uint8 * n).from_address(_pybytes_data(self._ptr)), dtype=torch.uint8)
+
+    def result(self, m: int) -> bytes:
+        """The object, cut to its first ``m`` bytes.  Nothing may write
+        through ``view`` any more, nor hold a tensor over it."""
+        if not 1 <= m <= self.n:
+            raise ValueError(f"length {m} outside 1..{self.n}")
+        self.view = None
+        ptr, self._ptr = self._ptr, None
+        _pybytes_resize(ctypes.byref(ptr), m)
+        obj = ctypes.cast(ptr, ctypes.py_object).value
+        _py_decref(ptr)
+        return obj
+
+    def __enter__(self) -> "_Output":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._ptr is not None:
+            self.view = None
+            _py_decref(self._ptr)
+            self._ptr = None
+
+
+def _pinned(n: int) -> torch.Tensor:
+    """``n`` bytes of pinned host memory (PyTorch's caching host allocator
+    keeps it for the next call); raises if the memory cannot be pinned."""
+    return torch.empty(n, dtype=torch.uint8, pin_memory=True)
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device``: on a CUDA device through pinned
+    memory, queued on the current stream with no wait."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+
+
+class _Upload:
+    """The host ranges a call reads, in order, each into a device slot.
+
+    ``ranges`` lists ``(a, b, n)``: bytes ``data[a:b]``, then zeros to
+    ``n`` bytes.  :meth:`take` gives the next range's first ``n`` bytes on
+    ``device`` (ordered on the current stream after its copy), and
+    :meth:`prefetch` starts the copy of the range after it, so that the
+    caller can queue a range's kernels first and copy the next range on
+    the host while they run.  The device holds ``min(2, len(ranges))``
+    slots of the widest range, allocated once a call.
+
+    On a CUDA device a range goes through one of as many pinned host
+    slots (:func:`_pinned`, allocated at the first copy): the host copies
+    it there in pieces of ``PIECE`` bytes and a side stream copies each
+    piece up as soon as it is there, then zeroes the tail.  Events order
+    the reuse of each slot: the host refills a pinned slot only after its
+    last upload ended, and the side stream overwrites a device slot only
+    after the work queued on the current stream by the range before it.
+    On the CPU a range is a plain copy: no pinned memory, no stream.
+    """
+
+    PIECE = 32 << 20
+
+    def __init__(self, data, ranges: Sequence[tuple[int, int, int]], device: torch.device):
+        self.src = _host_u8(data)
+        self.ranges = list(ranges)
+        self.device = device
+        n_slots = min(2, len(self.ranges))
+        width = max((n for _, _, n in self.ranges), default=0)
+        self.slots = torch.empty(n_slots, width, dtype=torch.uint8, device=device)
+        self.side = torch.cuda.Stream(device) if device.type == "cuda" else None
+        if self.side is not None:
+            self.slots.record_stream(self.side)  # freed only once the side stream's copies end
+        self.pinned = []
+        self.uploaded = [None] * n_slots  # the side stream's event after a slot's last upload
+        self.released = [None] * n_slots  # the current stream's event after a slot's last reader
+        self.loaded = self.taken = 0  # at most one range is loaded ahead of the last taken
+
+    def _load(self) -> None:
+        j = self.loaded
+        a, b, n = self.ranges[j]
+        s = j % self.slots.shape[0]
+        dst = self.slots[s]
+        self.loaded += 1
+        if self.side is None:
+            dst[: b - a].copy_(self.src[a:b])
+            dst[b - a : n].zero_()
+            return
+        if not self.pinned:
+            self.pinned = [_pinned(self.slots.shape[1]) for _ in range(self.slots.shape[0])]
+        if self.uploaded[s] is not None:
+            self.uploaded[s].synchronize()
+        if self.released[s] is not None:
+            self.side.wait_event(self.released[s])
+        pin = self.pinned[s]
+        for p in range(0, b - a, self.PIECE):
+            q = min(p + self.PIECE, b - a)
+            pin[p:q].copy_(self.src[a + p : a + q])
+            with torch.cuda.stream(self.side):
+                dst[p:q].copy_(pin[p:q], non_blocking=True)
+        with torch.cuda.stream(self.side):
+            dst[b - a : n].zero_()
+            self.uploaded[s] = self.side.record_event()
+
+    def prefetch(self) -> None:
+        """Copy the range after the one last taken, if there is one."""
+        if self.loaded == self.taken < len(self.ranges):
+            self._load()
+
+    def take(self) -> torch.Tensor:
+        """The next range on the device, ``(n,)`` uint8."""
+        j = self.taken
+        s = j % self.slots.shape[0]
+        if self.side is not None and j:
+            prev = (j - 1) % self.slots.shape[0]
+            self.released[prev] = torch.cuda.current_stream(self.device).record_event()
+        if self.loaded == j:
+            self._load()
+        if self.side is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.uploaded[s])
+        self.taken += 1
+        return self.slots[s, : self.ranges[j][2]]
+
+
+class _Fetch:
+    """Byte ranges on the device into the result's memory ``dst`` (a uint8
+    CPU tensor).
+
+    On a CUDA device :meth:`put` copies a range to the host on a side
+    stream, after the work queued on the current stream, into one of
+    ``n_slots`` pinned slots of ``slot_bytes`` (allocated at the first
+    put), and :meth:`drain` waits for that copy and copies the pinned slot
+    into ``dst``: the caller drains range ``i - 1`` while the card runs
+    range ``i``.  Every put drains first, so a range waits for the host
+    copy of the range two before it, the last one to use its slot.  On
+    the CPU, put copies into ``dst`` at once: no pinned memory, no stream.
+    """
+
+    def __init__(self, dst: torch.Tensor, device: torch.device, slot_bytes: int, n_slots: int):
+        self.dst = dst
+        self.slot_bytes, self.n_slots = slot_bytes, n_slots
+        self.side = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.pinned = []
+        self.pending = None  # (event, pinned slot, offset in dst)
+
+    def put(self, i: int, flat: torch.Tensor, off: int) -> None:
+        """Range ``i``'s bytes ``flat`` (on the device) to ``dst[off:]``."""
+        self.drain()
+        if self.side is None:
+            self.dst[off : off + flat.shape[0]].copy_(flat)
+            return
+        if not self.pinned:
+            self.pinned = [_pinned(self.slot_bytes) for _ in range(self.n_slots)]
+        slot = self.pinned[i % self.n_slots][: flat.shape[0]]
+        self.side.wait_stream(torch.cuda.current_stream(flat.device))
+        flat.record_stream(self.side)  # its memory is reused only once the copy ends
+        with torch.cuda.stream(self.side):
+            slot.copy_(flat, non_blocking=True)
+            self.pending = (self.side.record_event(), slot, off)
+
+    def drain(self) -> None:
+        """The pending range from its pinned slot into ``dst``."""
+        if self.pending is not None:
+            done, slot, off = self.pending
+            done.synchronize()
+            self.dst[off : off + slot.shape[0]].copy_(slot)
+            self.pending = None
+
+
 def encode(
     data: bytes,
     params: Optional[Parameters] = None,
@@ -228,6 +428,12 @@ def encode(
     :func:`_auto_block_size`).  ``device`` (default ``"cuda"``) runs the
     kernels; ``device="cpu"`` runs their plain versions; a sequence of
     devices shards the blocks over them.
+
+    The input goes up a lane chunk at a time (:class:`_Upload`), twice
+    past one chunk; each chunk's payload comes back (:class:`_Fetch`)
+    straight to its offset in the returned ``bytes``, and the header is
+    written in front of it once the last payload is there
+    (:func:`container.write_header`).
 
     ``_timings`` receives the wall time of each phase: ``pass1`` (each
     chunk's upload, histogram and crc), ``pass2`` (each chunk's upload,
@@ -250,24 +456,27 @@ def encode(
     lens = _block_lens(n, k)
     n_blocks = lens.size
     chunk = _lane_chunk(ENC_CHUNK_BYTES, k)
+    spans = [(s0, min(s0 + chunk, n_blocks)) for s0 in range(0, n_blocks, chunk)]
+    # Each chunk's bytes, zero past the input to its blocks' end; pass 2
+    # reads them again past one chunk.
+    ranges = [(s0 * k, min(s1 * k, n), (s1 - s0) * k) for s0, s1 in spans]
+    up = _Upload(data, ranges + (ranges if len(spans) > 1 else []), device)
 
     # Pass 1, a lane chunk at a time: the histogram and the chunk's crc on
     # the device, fetched once after the last chunk.  An input of one
     # chunk keeps its blocks for pass 2.
     hist = torch.zeros(256, dtype=torch.int64, device=device)
-    starts = range(0, n_blocks, chunk)
-    crcs = torch.zeros(len(starts), dtype=torch.int32, device=device)
+    crcs = torch.zeros(len(spans), dtype=torch.int32, device=device)
     after, kept = [], None
-    for i, s0 in enumerate(starts):
-        s1 = min(s0 + chunk, n_blocks)
-        blocks = _blocks(data, s0, s1, k, device)
-        flat = blocks.view(-1)[: min(s1 * k, n) - s0 * k]
+    for i, (a, b, _) in enumerate(ranges):
+        slot = up.take()
         if use_prior:
-            hist += _byte_histogram(flat)
-        crc32_device(flat, crcs[i : i + 1])
-        after.append(max(n - s1 * k, 0))
-        if n_blocks <= chunk:
-            kept = blocks
+            hist += _byte_histogram(slot[: b - a])
+        crc32_device(slot[: b - a], crcs[i : i + 1])
+        up.prefetch()
+        after.append(n - b)
+        if len(spans) == 1:
+            kept = slot
     crc = combine_crcs(crcs.cpu().to(torch.int64) & 0xFFFFFFFF, torch.tensor(after))
     prior_extra = _prior_extra(hist.cpu().numpy(), params, prior_budget) if use_prior else None
     ic = _init_cum(params, prior_extra)
@@ -278,40 +487,47 @@ def encode(
         return container.build_archive(params, block_size, 0, [], prior_extra, delta, crc)
 
     # Pass 2, a lane chunk at a time: K1 -> K2 on the chunk's blocks, the
-    # raw rule, the payload spliced on the device and fetched, and the
-    # wire lengths and raw flags for the header.
+    # raw rule, the payload spliced on the device and fetched to its place
+    # after the header, which the wire lengths and raw flags then fill.
+    # A block is stored raw unless its stream is shorter, so the payload
+    # takes at most n bytes.
     n_words = _encode_words(params, k, delta)
-    ic_t = init_cum_from_numpy(ic, params, device)
-    pieces, wire_parts, raw_parts = [], [], []
-    for s0 in range(0, n_blocks, chunk):
-        s1 = min(s0 + chunk, n_blocks)
-        blocks = kept if kept is not None else _blocks(data, s0, s1, k, device)
-        lens_t = torch.from_numpy(lens[s0:s1]).to(device)
-        if mesh is None:
-            words, bl, ov = encode_blocks_ranked(blocks, lens_t, ic_t, params, n_words, delta)
-        else:
-            words, bl, ov = encode_blocks_ranked_sharded(
-                blocks, lens_t, ic_t, params, n_words, mesh, delta)
-        # Stored raw: overflowed blocks and any block not smaller coded.
-        # The wire lengths and flags come to the host for the header; S2
-        # lays the payload out by them.
-        raw = ov | (bl >= lens_t)
-        head = torch.stack([torch.where(raw, lens_t, bl), raw.to(torch.int32)]).cpu()
-        wire, raw_h = head[0], head[1].bool()
-        payload = splice_payload(words, blocks, raw_h, wire)
-        pieces.append(payload.cpu().numpy())
-        wire_parts.append(wire.numpy())
-        raw_parts.append(raw_h.numpy())
-        del blocks, words, payload
-    clock.mark("pass2")
-
-    out = container.build_archive(
-        params, block_size, n, [], prior_extra, delta, crc,
-        np.concatenate(raw_parts).tolist(), payload=b"".join(pieces),
-        stream_lens=np.concatenate(wire_parts).tolist(),
-    )
-    clock.mark("header")
-    return out
+    ic_t = _to_device(init_cum_from_numpy(ic, params, "cpu"), device)
+    head_len = container.header_bytes(n_blocks, prior_extra is not None)
+    wire_all = np.empty(n_blocks, dtype=np.int32)
+    raw_all = np.empty(n_blocks, dtype=bool)
+    with _Output(head_len + n) as out:
+        fetch = _Fetch(out.view, device, ranges[0][2], min(2, len(spans)))
+        off = head_len
+        for i, (s0, s1) in enumerate(spans):
+            blocks = (kept if kept is not None else up.take()).view(s1 - s0, k)
+            lens_t = _to_device(lens[s0:s1], device)
+            if mesh is None:
+                words, bl, ov = encode_blocks_ranked(blocks, lens_t, ic_t, params, n_words, delta)
+            else:
+                words, bl, ov = encode_blocks_ranked_sharded(
+                    blocks, lens_t, ic_t, params, n_words, mesh, delta)
+            up.prefetch()  # the next chunk's host copy while K1 -> K2 run
+            fetch.drain()  # the previous chunk's payload into place, likewise
+            # Stored raw: overflowed blocks and any block not smaller coded.
+            # The wire lengths and flags come to the host for the header; S2
+            # lays the payload out by them.
+            raw = ov | (bl >= lens_t)
+            head = torch.stack([torch.where(raw, lens_t, bl), raw.to(torch.int32)]).cpu()
+            wire, raw_h = head[0], head[1].bool()
+            payload = splice_payload(words, blocks, raw_h, wire)
+            fetch.put(i, payload, off)
+            off += payload.shape[0]
+            wire_all[s0:s1], raw_all[s0:s1] = wire.numpy(), raw_h.numpy()
+            del blocks, words, payload
+        fetch.drain()
+        clock.mark("pass2")
+        container.write_header(out.view.numpy(), params, block_size, n, prior_extra, delta, crc,
+                               raw_all, wire_all)
+        del fetch
+        archive = out.result(off)
+        clock.mark("header")
+        return archive
 
 
 class _Lanes(NamedTuple):
@@ -361,10 +577,10 @@ def _stage_lanes(arch: torch.Tensor, header, lanes: _Lanes, sel: np.ndarray, bas
     n_words = _static_words(header.params, header.block_size, header.delta)
     lens_o = lanes.coded_lens[sel]
     wcap = min(max(4, -(-int(lens_o.max(initial=0)) // 4) + 2), n_words + 2)
-    words = gather_rows(arch, torch.from_numpy(header.stream_offs[sel] - base).to(dev),
-                        torch.from_numpy(lens_o).to(dev), wcap, words=True)
+    words = gather_rows(arch, _to_device(header.stream_offs[sel] - base, dev),
+                        _to_device(lens_o, dev), wcap, words=True)
     klens = np.where(lanes.raw[sel], 0, lanes.block_lens[sel]).astype(np.int32)
-    return words, torch.from_numpy(klens).to(dev)
+    return words, _to_device(klens, dev)
 
 
 def _chunk_slices(header, lanes: _Lanes, chunk: int) -> list:
@@ -394,9 +610,8 @@ def _decode_chunk(arch: torch.Tensor, base: int, header, lanes: _Lanes, s0: int,
     ri, ci = np.flatnonzero(raw), np.flatnonzero(~raw)
     if ri.size:
         r = s0 + ri
-        rows = gather_rows(arch, torch.from_numpy(header.stream_offs[r] - base).to(dev),
-                           torch.from_numpy(lanes.block_lens[r].astype(np.int64)).to(dev),
-                           out.shape[1])
+        rows = gather_rows(arch, _to_device(header.stream_offs[r] - base, dev),
+                           _to_device(lanes.block_lens[r].astype(np.int64), dev), out.shape[1])
     if ci.size:
         ci = ci[_by_length(lanes.coded_lens[s0 + ci])]
         words, klens = _stage_lanes(arch, header, lanes, s0 + ci, base)
@@ -406,82 +621,9 @@ def _decode_chunk(arch: torch.Tensor, base: int, header, lanes: _Lanes, s0: int,
         else:
             syms = decode_blocks_sharded(words, klens, ic_t, p, k, mesh, d)
         del words
-        out.index_copy_(0, torch.from_numpy(ci).to(dev), syms)
+        out.index_copy_(0, _to_device(ci, dev), syms)
     if ri.size:
-        out.index_copy_(0, torch.from_numpy(ri).to(dev), rows)
-
-
-_new_pybytes = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_void_p, ctypes.c_ssize_t)(
-    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
-_pybytes_data = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(
-    ("PyBytes_AsString", ctypes.pythonapi))
-
-
-def _new_bytes(n: int) -> tuple[bytes, torch.Tensor]:
-    """A new ``bytes`` of ``n`` >= 1 bytes, not yet written, and a writable
-    uint8 CPU tensor over its memory.  CPython's
-    ``PyBytes_FromStringAndSize(NULL, n)`` makes a fresh object that no one
-    else holds, so ``decode`` can write its output there and return it:
-    the result is the one full-size copy of the output on the host.  The
-    tensor must not outlive the object."""
-    if n < 1:
-        raise ValueError("n must be >= 1")
-    obj = _new_pybytes(None, n)
-    return obj, torch.frombuffer((ctypes.c_uint8 * n).from_address(_pybytes_data(obj)),
-                                 dtype=torch.uint8)
-
-
-class _Fetch:
-    """``decode``'s chunk outputs on the device and their way into the
-    result's memory ``dst`` (a uint8 CPU tensor).
-
-    :meth:`out` gives chunk ``i`` its output rows, one of ``n_slots``
-    device slots of ``(rows, k)``, allocated once.  On a CUDA device
-    :meth:`put` copies a chunk's bytes to the host on a side stream, after
-    the chunk's work on the current stream, into one of as many pinned
-    slots (allocated at the first put), and :meth:`drain` waits for that
-    copy and copies the pinned slot into ``dst``: ``decode`` drains chunk
-    ``i - 1`` while the card runs chunk ``i``.  Every put drains first, so
-    a chunk waits for the host copy of the chunk two before it, the last
-    one to use its slots.  On the CPU, put copies into ``dst`` at once: no
-    pinned memory, no stream.
-    """
-
-    def __init__(self, dst: torch.Tensor, device: torch.device, rows: int, k: int,
-                 n_slots: int):
-        self.dst = dst
-        self.outs = torch.empty(n_slots, rows, k, dtype=torch.uint8, device=device)
-        self.side = torch.cuda.Stream(device) if device.type == "cuda" else None
-        if self.side is not None:
-            self.outs.record_stream(self.side)  # freed only once the side stream's copies end
-        self.pinned = []
-        self.pending = None  # (event, pinned slot, offset in dst)
-
-    def out(self, i: int, rows: int) -> torch.Tensor:
-        return self.outs[i % self.outs.shape[0], :rows]
-
-    def put(self, i: int, flat: torch.Tensor, off: int) -> None:
-        """Chunk ``i``'s bytes ``flat`` (a view of its output) to ``dst[off:]``."""
-        self.drain()
-        if self.side is None:
-            self.dst[off : off + flat.shape[0]].copy_(flat)
-            return
-        if not self.pinned:
-            self.pinned = [torch.empty(self.outs[0].numel(), dtype=torch.uint8, pin_memory=True)
-                           for _ in range(self.outs.shape[0])]
-        slot = self.pinned[i % len(self.pinned)][: flat.shape[0]]
-        self.side.wait_stream(torch.cuda.current_stream(flat.device))
-        with torch.cuda.stream(self.side):
-            slot.copy_(flat, non_blocking=True)
-            self.pending = (self.side.record_event(), slot, off)
-
-    def drain(self) -> None:
-        """The pending chunk from its pinned slot into ``dst``."""
-        if self.pending is not None:
-            done, slot, off = self.pending
-            done.synchronize()
-            self.dst[off : off + slot.shape[0]].copy_(slot)
-            self.pending = None
+        out.index_copy_(0, _to_device(ri, dev), rows)
 
 
 def decode(archive: bytes, *, device: Devices = "cuda",
@@ -494,13 +636,14 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     sequence of devices shards each chunk's blocks over them.
 
     A chunk is a range of ``_lane_chunk(DEC_CHUNK_BYTES, k)`` blocks.  Each
-    has its own upload (its slice of the archive), S1 and K3 into its own
-    output rows (:func:`_decode_chunk`), S3, and fetch (:class:`_Fetch`:
-    on the card the output comes back on a side stream while the next
-    chunk runs); the chunks' CRCs stay on the device until the last chunk,
-    then come back together to be combined and checked.
-    The device holds at most two chunks' outputs and one chunk's slice,
-    words and symbols, whatever the input's size.
+    has its own upload (its slice of the archive, :class:`_Upload`: on the
+    card the next range's slice goes up while K3 runs), S1 and K3 into its
+    own output rows (:func:`_decode_chunk`), S3, and fetch
+    (:class:`_Fetch`: on the card the output comes back on a side stream
+    while the next chunk runs); the chunks' CRCs stay on the device until
+    the last chunk, then come back together to be combined and checked.
+    The device holds at most two chunks' slices and outputs and one
+    chunk's words and symbols, whatever the input's size.
 
     ``_timings`` receives the wall time of each phase, summed over the
     chunks: ``parse`` (the header and the lanes), ``upload`` (a chunk's
@@ -520,34 +663,40 @@ def decode(archive: bytes, *, device: Devices = "cuda",
         return b""
     n, k, n_blocks = header.orig_len, header.block_size, header.n_blocks
     lanes = _decode_lanes(header)
-    ic_t = init_cum_from_numpy(_init_cum(params, header.prior_extra), params, device)
+    ic_t = _to_device(init_cum_from_numpy(_init_cum(params, header.prior_extra), params, "cpu"),
+                      device)
     chunk = _lane_chunk(DEC_CHUNK_BYTES, k)
     slices = _chunk_slices(header, lanes, chunk)
-    result, dst = _new_bytes(n)
-    fetch = _Fetch(dst, device, min(chunk, n_blocks), k, min(2, len(slices)))
-    src = _host_u8(archive)
+    up = _Upload(archive, [(a, b, b - a) for _, _, a, b in slices], device)
+    rows = min(chunk, n_blocks)
+    outs = torch.empty(min(2, len(slices)), rows, k, dtype=torch.uint8, device=device)
     crcs = torch.zeros(len(slices), dtype=torch.int32, device=device)
     after = []
-    clock.mark("parse")
-
-    for i, (s0, s1, base, end) in enumerate(slices):
-        arch = src[base:end].to(device)
-        clock.mark("upload")
-        out = fetch.out(i, s1 - s0)
-        _decode_chunk(arch, base, header, lanes, s0, out, ic_t, mesh)
-        del arch
-        clock.mark("kernels")
-        fetch.drain()  # the previous chunk into the result while K3 runs
-        flat = out.view(-1)[: min(s1 * k, n) - s0 * k]
-        crc32_device(flat, crcs[i : i + 1])
-        after.append(n - s0 * k - flat.shape[0])
-        fetch.put(i, flat, s0 * k)
+    with _Output(n) as output:
+        fetch = _Fetch(output.view, device, rows * k, outs.shape[0])
+        clock.mark("parse")
+        for i, (s0, s1, base, _) in enumerate(slices):
+            arch = up.take()
+            clock.mark("upload")
+            out = outs[i % outs.shape[0], : s1 - s0]
+            _decode_chunk(arch, base, header, lanes, s0, out, ic_t, mesh)
+            del arch
+            clock.mark("kernels")
+            up.prefetch()  # the next range's host copy while K3 runs
+            clock.mark("upload")
+            fetch.drain()  # the previous range into the result, likewise
+            flat = out.view(-1)[: min(s1 * k, n) - s0 * k]
+            crc32_device(flat, crcs[i : i + 1])
+            after.append(n - s0 * k - flat.shape[0])
+            fetch.put(i, flat, s0 * k)
+            clock.mark("crc+fetch")
+        fetch.drain()
+        del fetch
+        crc = combine_crcs(crcs.cpu().to(torch.int64) & 0xFFFFFFFF, torch.tensor(after))
+        if crc != header.crc32:
+            raise InvalidInputError()
         clock.mark("crc+fetch")
-    fetch.drain()
-    if combine_crcs(crcs.cpu().to(torch.int64) & 0xFFFFFFFF, torch.tensor(after)) != header.crc32:
-        raise InvalidInputError()
-    clock.mark("crc+fetch")
-    return result
+        return output.result(n)
 
 
 def encode_compact(data: bytes, cfg: int) -> bytes:

@@ -124,6 +124,51 @@ def build_archive(
     return bytes(head) + (payload if payload is not None else b"".join(block_streams))
 
 
+def header_bytes(n_blocks: int, has_prior: bool) -> int:
+    """Bytes of an archive before its payload."""
+    return HEADER_BYTES + 4 * n_blocks + (512 if has_prior else 0)
+
+
+def write_header(
+    dst,
+    header_params: Parameters,
+    block_size: int,
+    orig_len: int,
+    prior_extra: Optional[np.ndarray],
+    delta: int,
+    crc: int,
+    block_raw: np.ndarray,
+    stream_lens: np.ndarray,
+) -> int:
+    """Write the bytes :func:`build_archive` puts before the payload into
+    the start of ``dst`` (a writable buffer) and return their count
+    (:func:`header_bytes`).  ``block_raw`` and ``stream_lens`` are arrays,
+    one entry a block; the block table is written by numpy, not a Python
+    value a block."""
+    p = header_params
+    lens = np.asarray(stream_lens, dtype=np.int64)
+    raw = np.asarray(block_raw, dtype=bool)
+    if not 1 <= delta <= 255 or raw.shape != lens.shape or lens.ndim != 1:
+        raise InvalidInputError()
+    if lens.size and (lens.min() < 0 or lens.max() >= RAW_BIT):
+        raise InvalidInputError()
+    if prior_extra is not None and (
+            prior_extra.shape != (256,) or prior_extra.max(initial=0) > 0xFFFF):
+        raise InvalidInputError()
+    n_streams = lens.size
+    size = header_bytes(n_streams, prior_extra is not None)
+    out = np.frombuffer(dst, dtype=np.uint8, count=size)
+    flags = FLAG_PRIOR if prior_extra is not None else 0
+    out[:4] = np.frombuffer(MAGIC, dtype=np.uint8)
+    struct.pack_into("<BBBBBB2xIQII", out, 4, VERSION, flags, p.symbol_bits, p.freq_bits,
+                     p.code_bits, delta, block_size, orig_len, n_streams, crc)
+    table = out[HEADER_BYTES : HEADER_BYTES + 4 * n_streams].view("<u4")
+    table[:] = lens.astype(np.uint32) | (raw.astype(np.uint32) << 31)
+    if prior_extra is not None:
+        out[size - 512 : size].view("<u2")[:] = prior_extra.astype("<u2")
+    return size
+
+
 def max_decoded_len(params: Parameters, payload_bytes: int) -> int:
     """Upper bound on symbols decodable from a payload of that many bytes.
 

@@ -434,7 +434,8 @@ def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
 def decode_memory_bound(header) -> int:
     """Bytes of device memory ``api.decode`` may hold at once for
     ``header``'s archive, reckoned from one chunk's shapes: two chunk
-    slots, each the largest chunk's slice of the archive, its staged words
+    slots, each the largest chunk's slice of the archive (two are held:
+    the next range's goes up while one decodes), its staged words
     (``rows x (n_words + 2)`` int32, the widest K3's input can be), K3's
     symbols and the chunk's output (``rows x k`` bytes each).  None of it
     grows with the input past one chunk."""
@@ -443,6 +444,25 @@ def decode_memory_bound(header) -> int:
     slices = api._chunk_slices(header, api._decode_lanes(header), rows)
     n_words = api._static_words(header.params, k, header.delta)
     return 2 * (max(b - a for _, _, a, b in slices) + 4 * rows * (n_words + 2) + 2 * rows * k)
+
+
+def encode_memory_bound(n_bytes: int, block_size: int, params: Parameters,
+                        delta: int = container.DEFAULT_DELTA) -> int:
+    """Bytes of device memory ``api.encode`` may hold at once for an input
+    of ``n_bytes``, reckoned from one chunk's shapes (``rows`` blocks of
+    ``block_size``): two input slots (one for an input of one chunk), K1's
+    lo/hi planes (``rows x k`` int32 each), K2's words (``rows x n_words``
+    int32) and one payload (at most ``rows x k`` bytes), 64 bytes a row
+    for the lengths, flags and row table, and 1 MiB for the tensors of a
+    call (histogram, CRCs, the initial row) as the allocator rounds them.
+    None of it grows with the input past one chunk."""
+    k = block_size
+    n_blocks = -(-n_bytes // k)
+    rows = min(api._lane_chunk(api.ENC_CHUNK_BYTES, k), n_blocks)
+    slots = 1 if n_blocks <= rows else 2
+    n_words = api._encode_words(params, k, delta)
+    return (slots * rows * k + 8 * rows * k + 4 * rows * n_words + rows * k + 64 * rows
+            + (1 << 20))
 
 
 def compare_staging(data: bytes, device, block_size: int | None = None,

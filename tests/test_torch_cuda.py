@@ -546,6 +546,73 @@ def test_decode_device_memory_is_flat_over_chunks(cuda_device, monkeypatch):
     assert abs(peaks[1] - peaks[0]) <= 0.05 * peaks[0], peaks
 
 
+@pytest.mark.cuda
+def test_encode_device_memory_is_flat_over_chunks(cuda_device, monkeypatch):
+    """With ``ENC_CHUNK_BYTES`` at 128 x 4096, encode 8 and 32 chunks of
+    128 blocks: the allocator's peak during each encode (above what was
+    allocated before it) stays under the reckoning from one chunk's shapes
+    (``cuda_checks.encode_memory_bound``: two input slots, K1's planes,
+    K2's words and a payload), and the 32-chunk peak is within 5% of the
+    8-chunk peak.  K1, K2, S2 and S3 launch once a chunk, no plain version
+    runs, and the archive is the CPU path's."""
+    import redux_tpu_torch
+    from redux_tpu_torch import api, cuda_checks, testdata
+    from redux_tpu_torch.ops import encode, model, staging
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+
+    monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * 4096)
+    k, peaks = 4096, []
+    for n_chunks in (8, 32):
+        data = testdata.mixed(n_chunks * 128 * k - 100, 37)
+        want = api.encode(data, block_size=k, device="cpu") if n_chunks == 8 else None
+        api.encode(data, block_size=k, device=cuda_device)  # warm-up: pinned slots, allocator
+        with monkeypatch.context() as m:
+            for mod, name in ((model, "model_lohi_plain"), (encode, "encode_blocks_plain"),
+                              (staging, "splice_payload_plain"), (staging, "crc32_plain")):
+                m.setattr(mod, name, refuse)
+            torch.cuda.synchronize(cuda_device)
+            before = torch.cuda.memory_allocated(cuda_device)
+            torch.cuda.reset_peak_memory_stats(cuda_device)
+            redux_tpu_torch.reset_launch_counts()
+            arch = api.encode(data, block_size=k, device=cuda_device)
+            torch.cuda.synchronize(cuda_device)
+            counts = redux_tpu_torch.launch_counts()
+            peak = torch.cuda.max_memory_allocated(cuda_device) - before
+        if want is not None:
+            assert arch == want
+        assert api.decode(arch, device=cuda_device) == data
+        assert counts == dict.fromkeys(counts, 0) | {
+            "model_values": n_chunks, "encode": n_chunks, "splice_payload": n_chunks,
+            "crc32": n_chunks}, counts
+        bound = cuda_checks.encode_memory_bound(len(data), k, api.Parameters.tpu_wide())
+        assert 0 < peak <= bound, (n_chunks, peak, bound)
+        peaks.append(peak)
+    assert abs(peaks[1] - peaks[0]) <= 0.05 * peaks[0], peaks
+
+
+@pytest.mark.cuda
+def test_a_failing_pin_raises(cuda_device, monkeypatch):
+    """Where host memory cannot be pinned, ``encode`` and ``decode`` on the
+    card raise; neither copies pageable memory instead."""
+    from redux_tpu_torch import api, testdata
+
+    data = testdata.mixed(3 << 20, 41)
+    arch = api.encode(data, device=cuda_device)
+
+    def fail(n):
+        raise RuntimeError("cannot pin")
+
+    monkeypatch.setattr(api, "_pinned", fail)
+    with pytest.raises(RuntimeError, match="cannot pin"):
+        api.encode(data, device=cuda_device)
+    with pytest.raises(RuntimeError, match="cannot pin"):
+        api.decode(arch, device=cuda_device)
+    monkeypatch.undo()
+    assert api.decode(arch, device=cuda_device) == data
+
+
 SEG, TILE = 256, 256 * 512  # ops.staging.CRC_SEGMENT, CRC_SEGMENT * CRC_THREADS
 
 

@@ -175,11 +175,12 @@ def test_new_bytes_is_fresh_and_writable():
     """The result's memory: a new ``bytes`` per call (one byte too, which
     CPython otherwise shares), written through its tensor."""
     for n in (1, 2, 4097):
-        a, ta = api._new_bytes(n)
-        b, tb = api._new_bytes(n)
-        assert a is not b and len(a) == n and ta.shape == (n,)
-        ta.fill_(7)
-        tb.fill_(9)
+        with api._Output(n) as oa, api._Output(n) as ob:
+            assert oa.view.shape == ob.view.shape == (n,)
+            oa.view.fill_(7)
+            ob.view.fill_(9)
+            a, b = oa.result(n), ob.result(n)
+        assert a is not b and len(a) == n
         assert a == b"\x07" * n and b == b"\x09" * n
     with pytest.raises(ValueError):
-        api._new_bytes(0)
+        api._Output(0)
