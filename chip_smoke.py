@@ -54,6 +54,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import platform
 import resource
 import subprocess
 import sys
@@ -111,6 +112,18 @@ def _route(name, data, ref_arch, device, launched):
     print(f"{name}: decode phases s " + json.dumps({k: round(v, 4) for k, v in t_dec.items()}))
     print(f"{name}: launches {json.dumps(launches)}")
     return arch, launches
+
+
+def _thp_mode() -> str:
+    """The machine's transparent huge page settings (``enabled``, ``defrag``)."""
+    out = []
+    for key in ("enabled", "defrag"):
+        try:
+            mode = (pathlib.Path("/sys/kernel/mm/transparent_hugepage") / key).read_text()
+            out.append(f"{key} {mode.strip()!r}")
+        except OSError:
+            out.append(f"{key} absent")
+    return ", ".join(out)
 
 
 def _cli(argv, dev):
@@ -456,9 +469,8 @@ def _at_size(dev, data):
     # Encode: K1, K2, S2 and S3 once a chunk.  Decode, a range of blocks a
     # chunk: K3 and S1 (words) once a range with coded blocks, S1 (bytes)
     # once a range with raw blocks, S3 once a range.
-    header = container.parse_archive(arch, with_streams=False)[0]
-    raw = np.asarray(header.block_raw)
-    ranges = [raw[s0 : s0 + dec_chunk] for s0 in range(0, n_blocks, dec_chunk)]
+    header = container.parse_table(arch)
+    ranges = [header.raw[s0 : s0 + dec_chunk] for s0 in range(0, n_blocks, dec_chunk)]
     coded = sum(bool((~r).any()) for r in ranges)
     with_raw = sum(bool(r.any()) for r in ranges)
     want_enc = dict.fromkeys(counts, 0) | {"model_values": n_enc, "encode": n_enc,
@@ -518,6 +530,8 @@ def _print_staging(what, res):
     for k in ("gather_rows", "splice_payload", "crc32"):
         r = res[k]
         ms = f"{r['ms']:.4f} ms" if r["ms"] is not None else "not timed"
+        if r["ms"]:
+            ms += f" ({r['bound_ms'] / r['ms']:.0%} of its bound)"
         if r.get("ms_bytes") is not None:
             ms += f" (words; bytes {r['ms_bytes']:.4f} ms on {res['raw_rows']} raw rows)"
         if r["ms_call"] is not None:
@@ -528,7 +542,10 @@ def _print_staging(what, res):
               f"int32 ops)")
     edges = ", ".join(map(str, cuda_checks.CRC_EDGES))
     print(f"{what}: {res['raw_rows']} raw blocks, crc32 also equal to zlib.crc32 at {edges} "
-          "bytes and from 1, 7 and 15 bytes in")
+          "bytes and from 1, 7 and 15 bytes in; gather_rows also equal to its plain version in "
+          f"{res['gather_rows']['edge_cases']} edge cases (offsets at every residue mod 16, rows "
+          "ending at the buffer's last byte, empty and full rows, widths off 4 and 16, the "
+          "buffer 0, 1, 7 and 15 bytes in)")
 
 
 def phase11(dev):
@@ -676,6 +693,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(smi)
     print(f"device: {name}, torch {torch.__version__}, cuda {torch.version.cuda}")
+    print(f"host: {os.cpu_count()} cpus, {torch.get_num_threads()} torch threads, kernel "
+          f"{platform.release()}, transparent huge pages {_thp_mode()}; the results' pages "
+          f"prefaulted by {api._Output.TOUCH_THREADS} threads writing a byte a page")
 
     # Phase 2: build.
     t0 = time.perf_counter()

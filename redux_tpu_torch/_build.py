@@ -47,8 +47,8 @@ SIGNATURES = {
     # freq_max, code_bits, device, stream (K4 and K5 take the same)
     "rxt_encode_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "rxt_encode_m": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # buf, n, offs, lens, out, B, width, words, device, stream
-    "rxt_gather_rows": (_P, _L, _P, _P, _P, _I, _I, _I, _I, _P),
+    # buf, n, offs, lens, out, B, row bytes, words, device, stream
+    "rxt_gather_rows": (_P, _L, _P, _P, _P, _L, _L, _I, _I, _P),
     # words, n_words, blocks, k, B, ends, raw, out, total, device, stream
     "rxt_splice_payload": (_P, _I, _P, _I, _L, _P, _P, _P, _L, _I, _P),
     # buf, n, consts, out, device, stream

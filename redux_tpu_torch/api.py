@@ -52,8 +52,10 @@ change ``encode_auto``'s candidates, and so its bytes, silently.
 from __future__ import annotations
 
 import ctypes
+import mmap
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -204,11 +206,14 @@ class _Clock:
         self.wait = [d for d in devices if d.type == "cuda"] if timings is not None else []
         self.t0 = time.perf_counter()
 
-    def mark(self, name: str) -> None:
+    def mark(self, name: str, part: Optional[str] = None) -> None:
+        """Time since the last mark into ``name`` and, with ``part``, also
+        into ``"name part"``: a phase's parts sum to the phase."""
         for d in self.wait:
             torch.cuda.synchronize(d)
         now = time.perf_counter()
-        self.tt[name] = self.tt.get(name, 0.0) + (now - self.t0)
+        for key in (name, f"{name} {part}") if part else (name,):
+            self.tt[key] = self.tt.get(key, 0.0) + (now - self.t0)
         self.t0 = now
 
 
@@ -234,7 +239,18 @@ class _Output:
     past the end were never touched).  A failing resize frees the object
     and raises.  Use it as a context manager: the object is freed if the
     call raises before :meth:`result`.
+
+    Its pages are new: the first write to each faults it in and zeroes it.
+    :meth:`prefault` takes that off the caller's copies: ``TOUCH_THREADS``
+    threads write a zero into each page of a range the caller will write
+    (its first byte and each page start in it, never a byte outside it),
+    ``TOUCH_PIECE`` bytes a task, while the card works; :meth:`ready`
+    waits for a range's tasks before the caller writes it.  Every task is
+    waited for (or cancelled) before the object is handed over or freed.
     """
+
+    TOUCH_THREADS = 4
+    TOUCH_PIECE = 16 << 20
 
     def __init__(self, n: int):
         if n < 1:
@@ -243,12 +259,37 @@ class _Output:
         self._ptr = ctypes.c_void_p(_new_pybytes(None, n))
         self.view = torch.frombuffer(
             (ctypes.c_uint8 * n).from_address(_pybytes_data(self._ptr)), dtype=torch.uint8)
+        self._pool = None
+        self._touches = []  # (a, b, future) of each prefault task
+
+    def prefault(self, a: int, b: int) -> None:
+        """Fault in the pages of bytes ``[a, b)``, which the caller will
+        write all of, on the worker threads."""
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(self.TOUCH_THREADS, "redux-prefault")
+        arr = self.view.numpy()
+        for p in range(a, b, self.TOUCH_PIECE):
+            q = min(p + self.TOUCH_PIECE, b)
+            self._touches.append((p, q, self._pool.submit(_touch_pages, arr, p, q)))
+
+    def ready(self, a: int, b: int) -> None:
+        """Wait until every prefault of a byte in ``[a, b)`` is done."""
+        for p, q, done in self._touches:
+            if p < b and a < q:
+                done.result()
+
+    def _join(self) -> None:
+        """Wait for the prefault tasks, cancelling those not started."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool, self._touches = None, []
 
     def result(self, m: int) -> bytes:
         """The object, cut to its first ``m`` bytes.  Nothing may write
         through ``view`` any more, nor hold a tensor over it."""
         if not 1 <= m <= self.n:
             raise ValueError(f"length {m} outside 1..{self.n}")
+        self._join()
         self.view = None
         ptr, self._ptr = self._ptr, None
         _pybytes_resize(ctypes.byref(ptr), m)
@@ -260,16 +301,19 @@ class _Output:
         return self
 
     def __exit__(self, *exc) -> None:
+        self._join()
         if self._ptr is not None:
             self.view = None
             _py_decref(self._ptr)
             self._ptr = None
 
 
-def _pinned(n: int) -> torch.Tensor:
-    """``n`` bytes of pinned host memory (PyTorch's caching host allocator
-    keeps it for the next call); raises if the memory cannot be pinned."""
-    return torch.empty(n, dtype=torch.uint8, pin_memory=True)
+def _touch_pages(arr: np.ndarray, a: int, b: int) -> None:
+    """Write a zero into byte ``a`` of ``arr`` and into each byte of ``[a,
+    b)`` that starts a page: numpy, which lets the GIL go."""
+    if a < b:
+        arr[a] = 0
+        arr[a + (-(arr.ctypes.data + a)) % mmap.PAGESIZE : b : mmap.PAGESIZE] = 0
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -277,6 +321,12 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     memory, queued on the current stream with no wait."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+
+
+def _pinned(n: int) -> torch.Tensor:
+    """``n`` bytes of pinned host memory (PyTorch's caching host allocator
+    keeps it for the next call); raises if the memory cannot be pinned."""
+    return torch.empty(n, dtype=torch.uint8, pin_memory=True)
 
 
 class _Upload:
@@ -364,8 +414,8 @@ class _Upload:
 
 
 class _Fetch:
-    """Byte ranges on the device into the result's memory ``dst`` (a uint8
-    CPU tensor).
+    """Byte ranges on the device into the result's memory (an
+    :class:`_Output`).
 
     On a CUDA device :meth:`put` copies a range to the host on a side
     stream, after the work queued on the current stream, into one of
@@ -375,10 +425,12 @@ class _Fetch:
     range ``i``.  Every put drains first, so a range waits for the host
     copy of the range two before it, the last one to use its slot.  On
     the CPU, put copies into ``dst`` at once: no pinned memory, no stream.
+    Each copy into ``dst`` first waits for the range's prefault
+    (:meth:`_Output.ready`).
     """
 
-    def __init__(self, dst: torch.Tensor, device: torch.device, slot_bytes: int, n_slots: int):
-        self.dst = dst
+    def __init__(self, out: _Output, device: torch.device, slot_bytes: int, n_slots: int):
+        self.out = out
         self.slot_bytes, self.n_slots = slot_bytes, n_slots
         self.side = torch.cuda.Stream(device) if device.type == "cuda" else None
         self.pinned = []
@@ -388,7 +440,8 @@ class _Fetch:
         """Range ``i``'s bytes ``flat`` (on the device) to ``dst[off:]``."""
         self.drain()
         if self.side is None:
-            self.dst[off : off + flat.shape[0]].copy_(flat)
+            self.out.ready(off, off + flat.shape[0])
+            self.out.view[off : off + flat.shape[0]].copy_(flat)
             return
         if not self.pinned:
             self.pinned = [_pinned(self.slot_bytes) for _ in range(self.n_slots)]
@@ -404,7 +457,8 @@ class _Fetch:
         if self.pending is not None:
             done, slot, off = self.pending
             done.synchronize()
-            self.dst[off : off + slot.shape[0]].copy_(slot)
+            self.out.ready(off, off + slot.shape[0])
+            self.out.view[off : off + slot.shape[0]].copy_(slot)
             self.pending = None
 
 
@@ -433,7 +487,8 @@ def encode(
     past one chunk; each chunk's payload comes back (:class:`_Fetch`)
     straight to its offset in the returned ``bytes``, and the header is
     written in front of it once the last payload is there
-    (:func:`container.write_header`).
+    (:func:`container.write_header`).  Each range's pages are prefaulted
+    once its length is known (:meth:`_Output.prefault`).
 
     ``_timings`` receives the wall time of each phase: ``pass1`` (each
     chunk's upload, histogram and crc), ``pass2`` (each chunk's upload,
@@ -497,7 +552,8 @@ def encode(
     wire_all = np.empty(n_blocks, dtype=np.int32)
     raw_all = np.empty(n_blocks, dtype=bool)
     with _Output(head_len + n) as out:
-        fetch = _Fetch(out.view, device, ranges[0][2], min(2, len(spans)))
+        out.prefault(0, head_len)
+        fetch = _Fetch(out, device, ranges[0][2], min(2, len(spans)))
         off = head_len
         for i, (s0, s1) in enumerate(spans):
             blocks = (kept if kept is not None else up.take()).view(s1 - s0, k)
@@ -515,6 +571,7 @@ def encode(
             raw = ov | (bl >= lens_t)
             head = torch.stack([torch.where(raw, lens_t, bl), raw.to(torch.int32)]).cpu()
             wire, raw_h = head[0], head[1].bool()
+            out.prefault(off, off + int(wire.numpy().sum(dtype=np.int64)))
             payload = splice_payload(words, blocks, raw_h, wire)
             fetch.put(i, payload, off)
             off += payload.shape[0]
@@ -522,6 +579,7 @@ def encode(
             del blocks, words, payload
         fetch.drain()
         clock.mark("pass2")
+        out.ready(0, head_len)
         container.write_header(out.view.numpy(), params, block_size, n, prior_extra, delta, crc,
                                raw_all, wire_all)
         del fetch
@@ -536,7 +594,6 @@ class _Lanes(NamedTuple):
     raw: np.ndarray  # (B,) bool: stored raw, no symbols to decode
     block_lens: np.ndarray  # (B,) int32 symbols a block
     coded_lens: np.ndarray  # (B,) int64 coded stream bytes, 0 for a raw block
-    order: np.ndarray  # lanes sorted by coded length (the reference's order)
 
 
 def _by_length(lens: np.ndarray) -> np.ndarray:
@@ -547,23 +604,22 @@ def _by_length(lens: np.ndarray) -> np.ndarray:
     return np.argsort(lens, kind="stable")
 
 
-def _decode_lanes(header) -> _Lanes:
-    """Which blocks of ``header`` are coded, their stream lengths and the
-    order K3 takes them in; InvalidInputError where a raw block's stored
-    length is not its block length, or a coded stream is longer than the
-    decoder's row (``n_words + 2`` words, :func:`_stage_lanes`) can hold:
-    the encoder never writes one."""
-    block_lens = _block_lens(header.orig_len, max(header.block_size, 1))  # parse checked n_blocks
-    raw = (np.asarray(header.block_raw, dtype=bool) if header.block_raw
-           else np.zeros(header.n_blocks, dtype=bool))
-    stream_lens = np.asarray(header.block_byte_lens, dtype=np.int64)
-    if (stream_lens[raw] != block_lens[raw]).any():
+def _decode_lanes(table: container.BlockTable) -> _Lanes:
+    """Which blocks of ``table`` (:func:`container.parse_table`) are coded
+    and their stream lengths (K3 takes a range's coded blocks sorted by
+    them, :func:`_by_length`); InvalidInputError
+    where a raw block's stored length is not its block length, or a coded
+    stream is longer than the decoder's row (``n_words + 2`` words,
+    :func:`_stage_lanes`) can hold: the encoder never writes one."""
+    block_lens = _block_lens(table.orig_len, max(table.block_size, 1))  # parse checked n_blocks
+    raw = table.raw
+    if (table.byte_lens[raw] != block_lens[raw]).any():
         raise InvalidInputError()
-    coded_lens = np.where(raw, 0, stream_lens)
-    n_words = _static_words(header.params, header.block_size, header.delta)
+    coded_lens = np.where(raw, 0, table.byte_lens)
+    n_words = _static_words(table.params, table.block_size, table.delta)
     if coded_lens.max(initial=0) > 4 * (n_words + 2):
         raise InvalidInputError()
-    return _Lanes(raw, block_lens, coded_lens, _by_length(coded_lens))
+    return _Lanes(raw, block_lens, coded_lens)
 
 
 def _stage_lanes(arch: torch.Tensor, header, lanes: _Lanes, sel: np.ndarray, base: int = 0):
@@ -572,13 +628,13 @@ def _stage_lanes(arch: torch.Tensor, header, lanes: _Lanes, sel: np.ndarray, bas
     streams as a ``(len(sel), wcap)`` word matrix, zero past each stream
     and for two words past the longest (reads past a stream's terminator
     see zero bits; the kernel also bounds-checks its row), and their int32
-    symbol counts, 0 for a raw block."""
+    symbol counts, 0 for a raw block.  S1 takes the offsets and lengths
+    as host arrays: no wait for the card."""
     dev = arch.device
     n_words = _static_words(header.params, header.block_size, header.delta)
     lens_o = lanes.coded_lens[sel]
     wcap = min(max(4, -(-int(lens_o.max(initial=0)) // 4) + 2), n_words + 2)
-    words = gather_rows(arch, _to_device(header.stream_offs[sel] - base, dev),
-                        _to_device(lens_o, dev), wcap, words=True)
+    words = gather_rows(arch, header.stream_offs[sel] - base, lens_o, wcap, words=True)
     klens = np.where(lanes.raw[sel], 0, lanes.block_lens[sel]).astype(np.int32)
     return words, _to_device(klens, dev)
 
@@ -603,15 +659,15 @@ def _decode_chunk(arch: torch.Tensor, base: int, header, lanes: _Lanes, s0: int,
     archive, which starts at archive offset ``base``: a raw block's row is
     its stored bytes (S1, bytes), the coded blocks go through S1 (words)
     and K3 sorted by coded length, and their symbols into their rows.  Both
-    S1 calls check their rows, which waits for the card, before K3 is
-    queued.  No coded block, no K3."""
+    S1 calls check their rows on the host and queue their kernels with no
+    wait.  No coded block, no K3."""
     dev = arch.device
     raw = lanes.raw[s0 : s0 + out.shape[0]]
     ri, ci = np.flatnonzero(raw), np.flatnonzero(~raw)
     if ri.size:
         r = s0 + ri
-        rows = gather_rows(arch, _to_device(header.stream_offs[r] - base, dev),
-                           _to_device(lanes.block_lens[r].astype(np.int64), dev), out.shape[1])
+        rows = gather_rows(arch, header.stream_offs[r] - base,
+                           lanes.block_lens[r].astype(np.int64), out.shape[1])
     if ci.size:
         ci = ci[_by_length(lanes.coded_lens[s0 + ci])]
         words, klens = _stage_lanes(arch, header, lanes, s0 + ci, base)
@@ -645,17 +701,25 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     The device holds at most two chunks' slices and outputs and one
     chunk's words and symbols, whatever the input's size.
 
+    The header's block table is read by numpy (:func:`container.parse_table`):
+    no Python object a block.  The result's pages are faulted in on worker
+    threads while the card decodes (:meth:`_Output.prefault`), so the
+    fetch's copies write pages that are there.
+
     ``_timings`` receives the wall time of each phase, summed over the
     chunks: ``parse`` (the header and the lanes), ``upload`` (a chunk's
     slice), ``kernels`` (S1 -> K3 into the rows, the raw rows) and
-    ``crc+fetch`` (S3, the copy to the host and into the result).  Each
-    mark waits for the card, which serializes the fetch that otherwise
-    overlaps the next chunk: read the wall clock from a call without
-    ``_timings``.
+    ``crc+fetch`` (S3, the copy to the host and into the result), which
+    splits into ``crc+fetch s3`` (S3, and the CRCs' combine and check),
+    ``crc+fetch d2h`` (the copy to a pinned slot, and its wait) and
+    ``crc+fetch copy`` (the slot into the result, with any wait for its
+    prefault).  Each mark waits for the card, which serializes the fetch
+    that otherwise overlaps the next chunk: read the wall clock from a
+    call without ``_timings``.
     """
     device, mesh = _placement(device)
     clock = _Clock(_timings, mesh or [device])
-    header, _ = container.parse_archive(archive, with_streams=False)
+    header = container.parse_table(archive)
     params = header.params
     _require_cuda(device)
     if header.orig_len == 0:
@@ -673,7 +737,9 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     crcs = torch.zeros(len(slices), dtype=torch.int32, device=device)
     after = []
     with _Output(n) as output:
-        fetch = _Fetch(output.view, device, rows * k, outs.shape[0])
+        for s0, s1, _, _ in slices:  # every byte of the result is written, a range at a time
+            output.prefault(s0 * k, min(s1 * k, n))
+        fetch = _Fetch(output, device, rows * k, outs.shape[0])
         clock.mark("parse")
         for i, (s0, s1, base, _) in enumerate(slices):
             arch = up.take()
@@ -685,17 +751,20 @@ def decode(archive: bytes, *, device: Devices = "cuda",
             up.prefetch()  # the next range's host copy while K3 runs
             clock.mark("upload")
             fetch.drain()  # the previous range into the result, likewise
+            clock.mark("crc+fetch", "copy")
             flat = out.view(-1)[: min(s1 * k, n) - s0 * k]
             crc32_device(flat, crcs[i : i + 1])
             after.append(n - s0 * k - flat.shape[0])
+            clock.mark("crc+fetch", "s3")
             fetch.put(i, flat, s0 * k)
-            clock.mark("crc+fetch")
+            clock.mark("crc+fetch", "d2h")
         fetch.drain()
         del fetch
+        clock.mark("crc+fetch", "copy")
         crc = combine_crcs(crcs.cpu().to(torch.int64) & 0xFFFFFFFF, torch.tensor(after))
         if crc != header.crc32:
             raise InvalidInputError()
-        clock.mark("crc+fetch")
+        clock.mark("crc+fetch", "s3")
         return output.result(n)
 
 

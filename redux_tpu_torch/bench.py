@@ -128,9 +128,10 @@ def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10, *,
     # it at every size, is also the end-to-end warm-up).
     archive = api.encode(data, params=params, block_size=k, delta=DELTA, use_prior=True,
                          device=dev)
-    header, _ = container.parse_archive(archive, with_streams=False)
+    header = container.parse_table(archive)
     lanes = api._decode_lanes(header)
-    staged, klens_o = api._stage_lanes(api._host_u8(archive).to(dev), header, lanes, lanes.order)
+    order = api._by_length(lanes.coded_lens)
+    staged, klens_o = api._stage_lanes(api._host_u8(archive).to(dev), header, lanes, order)
 
     def decode_step():
         return decode_blocks(staged, klens_o, x.init_cum, params, k, DELTA)
@@ -148,14 +149,14 @@ def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10, *,
     enc_bytes = torch.from_numpy(words_to_bytes(words).cpu().numpy())
     coded = np.flatnonzero(~lanes.raw)
     coded_lens = torch.from_numpy(lanes.coded_lens[coded])
-    stored = gather_rows(api._host_u8(archive), torch.from_numpy(header.stream_offs[coded]),
-                         coded_lens, enc_bytes.shape[1])
+    stored = gather_rows(api._host_u8(archive), header.stream_offs[coded], lanes.coded_lens[coded],
+                         enc_bytes.shape[1])
     in_stream = torch.arange(enc_bytes.shape[1])[None, :] < coded_lens[:, None]
     verified = (np.array_equal(raw, lanes.raw)
                 and torch.equal(torch.where(in_stream, enc_bytes[coded], 0), stored))
     del enc_bytes, stored, in_stream
     got = np.zeros((n_blocks, k), dtype=np.uint8)
-    got[lanes.order] = decoded.cpu().numpy()
+    got[order] = decoded.cpu().numpy()
     src = np.frombuffer(data, np.uint8)
     for i in np.flatnonzero(lanes.raw):
         got[i, : lanes.block_lens[i]] = src[i * k : i * k + lanes.block_lens[i]]

@@ -181,14 +181,31 @@ def max_decoded_len(params: Parameters, payload_bytes: int) -> int:
     return 8 * payload_bytes * per_bit
 
 
-def parse_archive(
-    archive: bytes, with_streams: bool = True
-) -> tuple[ArchiveHeader, Optional[List[bytes]]]:
-    """Parse an RXT archive into its header and per-block payload streams.
+@dataclasses.dataclass(frozen=True)
+class BlockTable:
+    """An archive's header with its block table as arrays, one entry a
+    block (:func:`parse_table`): what a decoder reads, with no Python
+    object a block."""
 
-    ``with_streams=False`` skips the per-block bytes list (decoders gather
-    payload slices through ``header.stream_offs``).
-    """
+    params: Parameters
+    block_size: int
+    orig_len: int
+    byte_lens: np.ndarray  # (n_blocks,) int64 stored stream bytes
+    raw: np.ndarray  # (n_blocks,) bool: stored raw
+    stream_offs: np.ndarray  # (n_blocks,) int64 archive offset of each block's bytes
+    prior_extra: Optional[np.ndarray]  # (256,) int64 extra counts, or None
+    delta: int
+    crc32: int
+
+    @property
+    def n_blocks(self) -> int:
+        return self.byte_lens.size
+
+
+def parse_table(archive: bytes) -> BlockTable:
+    """Parse an RXT archive's header and block table into arrays (numpy
+    over the table's bytes).  Raises :class:`InvalidInputError` for every
+    archive :func:`parse_archive` (and the reference's) rejects."""
     if len(archive) < HEADER_BYTES or archive[:4] != MAGIC:
         raise InvalidInputError()
     version, flags, sb, fb, cb, delta = struct.unpack_from("<BBBBBB", archive, 4)
@@ -202,42 +219,51 @@ def parse_archive(
     off = HEADER_BYTES
     if len(archive) < off + 4 * n_blocks:
         raise InvalidInputError()
-    packed = struct.unpack_from(f"<{n_blocks}I", archive, off)
-    byte_lens = [n & ~RAW_BIT for n in packed]
-    block_raw = tuple(bool(n & RAW_BIT) for n in packed)
+    packed = np.frombuffer(archive, dtype="<u4", count=n_blocks, offset=off)
+    byte_lens = (packed & ~np.uint32(RAW_BIT)).astype(np.int64)
+    raw = packed >= RAW_BIT
     off += 4 * n_blocks
     prior = None
     if flags & FLAG_PRIOR:
         if len(archive) < off + 512:
             raise InvalidInputError()
-        prior = (
-            np.frombuffer(archive, dtype="<u2", count=256, offset=off)
-            .astype(np.int64)
-            .copy()
-        )
+        prior = np.frombuffer(archive, dtype="<u2", count=256, offset=off).astype(np.int64)
         off += 512
-    lens_np = np.asarray(byte_lens, dtype=np.int64)
-    offs = off + np.cumsum(lens_np) - lens_np  # exclusive prefix (empty-safe)
-    total = int(lens_np.sum())
+    ends = np.cumsum(byte_lens)
+    total = int(ends[-1]) if n_blocks else 0
     if len(archive) < off + total:
         raise InvalidInputError()
-    off += total
-    streams = (
-        [archive[o : o + n] for o, n in zip(offs, byte_lens)]
-        if with_streams
-        else None
-    )
-    header = ArchiveHeader(
-        params, block_size, orig_len, byte_lens, prior, delta, crc, block_raw,
-        offs,
-    )
     if block_size == 0 and orig_len > 0:
         raise InvalidInputError()
     expect_blocks = (orig_len + block_size - 1) // block_size if orig_len else 0
     if expect_blocks != n_blocks:
         raise InvalidInputError()
-    if orig_len > max_decoded_len(params, sum(byte_lens)) + HEADER_BYTES * 8:
+    if orig_len > max_decoded_len(params, total) + HEADER_BYTES * 8:
         raise InvalidInputError()
+    return BlockTable(params, block_size, orig_len, byte_lens, raw, off + ends - byte_lens,
+                      prior, delta, crc)
+
+
+def parse_archive(
+    archive: bytes, with_streams: bool = True
+) -> tuple[ArchiveHeader, Optional[List[bytes]]]:
+    """Parse an RXT archive into its header and per-block payload streams
+    (the reference's lists and tuple, built from :func:`parse_table`).
+
+    ``with_streams=False`` skips the per-block bytes list (decoders gather
+    payload slices through ``header.stream_offs``).
+    """
+    t = parse_table(archive)
+    byte_lens = t.byte_lens.tolist()
+    streams = (
+        [archive[o : o + n] for o, n in zip(t.stream_offs.tolist(), byte_lens)]
+        if with_streams
+        else None
+    )
+    header = ArchiveHeader(
+        t.params, t.block_size, t.orig_len, byte_lens, t.prior_extra, t.delta, t.crc32,
+        tuple(t.raw.tolist()), t.stream_offs,
+    )
     return header, streams
 
 

@@ -19,11 +19,27 @@
 // write it once; S3 reads its input once, at a few integer operations a
 // byte.
 //
-// S1: one CTA of 256 threads a row, the threads walking the row together,
-// so a warp's stores cover 32 neighbouring bytes (bytes) or 128 (words:
-// four byte loads and one u32 store a thread).  Every read is bounded by
-// the buffer's length and by the row's width, whatever the offsets say; the
-// wrapper also checks the offsets before the launch.
+// S1, output-stationary like S2, a warp a row.  The wrapper checks the
+// offsets and lengths on the host (the header's, which the caller holds)
+// and uploads them; the kernel still bounds every read by the buffer and
+// every write by the row, whatever they say.  The output is one flat
+// array of B rows of rb bytes (rb = width, or 4 * width for words); a
+// 16-byte aligned piece of it belongs to the row it starts in, so a row's
+// pieces start at the 16-byte boundaries from its start to its end and
+// its last one may reach into the next row.  A warp (a team of up to 8
+// warps for wide rows, when the rows alone would not fill the SMs) takes
+// a row: lane l its pieces 16 l, 16 (l + 32), ... from the first
+// boundary, so a warp's stores cover 512 neighbouring bytes.  A piece
+// inside one row is at most two aligned 16-byte loads of the row's
+// source window (any byte offset; the buffer itself may start anywhere)
+// and one __byte_perm a word, which realigns the window and, for K3's
+// big-endian words, reverses each word at once; bytes past the row's
+// length are masked to zero, a piece wholly past it is stored without a
+// load.  A piece across rows ORs each row's window under a byte mask;
+// only where a window's loads would leave the buffer (its first or last
+// 16 bytes) are bytes read one at a time.  What holds it back: 57
+// registers (four CTAs an SM) and each piece's second load, which the
+// next lane makes too (an L1 hit, but an instruction).
 //
 // S2, output-stationary.  The wrapper checks the wire lengths on the host
 // (the header's, which the caller holds) and uploads them; their running
@@ -75,7 +91,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // S1
+constexpr int kGatherThreads = 256;  // S1: 8 warps, a row a team of 1-8 warps
 
 constexpr int kSpliceThreads = 256;
 constexpr int kSplicePieces = 16;  // aligned 16-byte pieces a thread
@@ -106,32 +122,6 @@ constexpr int kCopies = 16;  // of the slicing tables in shared memory
 constexpr int kSmemSlice = 1024 * kCopies;           // u32 words
 constexpr int kSmemShift = 1024 * (2 + kCrcLevels);  // the gaps' and the tree's tables
 constexpr int kCrcSmem = 4 * (kSmemSlice + kSmemShift + 16 + 2);  // + warp values, m, K
-
-template <bool kWords>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const uint8_t* __restrict__ buf, long long n,
-                   const long long* __restrict__ offs, const long long* __restrict__ lens,
-                   void* __restrict__ out, int width) {
-  const size_t row = blockIdx.x;
-  const long long off = offs[row];
-  long long len = lens[row];
-  if (off < 0 || len < 0 || off > n) len = 0;
-  if (len > n - off) len = n - off;  // never past the buffer
-  if (kWords) {
-    uint32_t* o = static_cast<uint32_t*>(out) + row * width;
-    for (int j = threadIdx.x; j < width; j += kThreads) {
-      const long long p = 4LL * j;
-      uint32_t w = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if (p + b < len) w |= static_cast<uint32_t>(buf[off + p + b]) << (24 - 8 * b);
-      o[j] = w;
-    }
-  } else {
-    uint8_t* o = static_cast<uint8_t*>(out) + row * width;
-    for (int j = threadIdx.x; j < width; j += kThreads) o[j] = j < len ? buf[off + j] : 0;
-  }
-}
 
 // The first row whose end passes x (B if none); ends non-decreasing.
 // Every thread of the CTA calls it with the same x: each step samples the
@@ -185,6 +175,116 @@ __device__ __forceinline__ bool piece16(const uint8_t* __restrict__ src, long lo
 __device__ __forceinline__ uint32_t byte_mask(int lo, int hi, int word) {
   const int a = min(max(lo - 4 * word, 0), 4), b = min(max(hi - 4 * word, 0), 4);
   return static_cast<uint32_t>(((1ULL << (8 * b)) - 1) & ~((1ULL << (8 * a)) - 1));
+}
+
+// S1: bytes [lo, hi) (0 <= lo < hi <= 16) of the 16 at buffer byte at
+// (which may lie before the buffer; the bytes [at + lo, at + hi) lie in
+// it), in a piece's order, zero elsewhere; with swap each word reversed
+// (K3's big-endian words).  Two aligned 16-byte loads at most, each only
+// where it holds one of the bytes, and one __byte_perm a word; bytes one
+// at a time where a load would leave the buffer.
+__device__ __forceinline__ uint4 gather_window(const uint8_t* __restrict__ buf, long long n,
+                                               long long at, int lo, int hi, bool swap) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(buf);
+  const uintptr_t p = base + static_cast<uintptr_t>(at);
+  const uintptr_t c0 = p & ~static_cast<uintptr_t>(15);
+  const int sh = static_cast<int>(p & 15);
+  const bool need_a = sh + lo < 16, need_b = sh + hi > 16;
+  const uintptr_t end = base + static_cast<uintptr_t>(n);
+  uint32_t o[4];
+  if ((!need_a || (c0 >= base && c0 + 16 <= end)) &&
+      (!need_b || (c0 + 16 >= base && c0 + 32 <= end))) {
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    const uint4 a = need_a ? __ldg(reinterpret_cast<const uint4*>(c0)) : z;
+    const uint4 b = need_b ? __ldg(reinterpret_cast<const uint4*>(c0 + 16)) : z;
+    // Words sh / 4 .. sh / 4 + 4 of the 32-byte window, by two selects.
+    const uint32_t w8[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    uint32_t w[6], x[5];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) w[j] = sh & 8 ? w8[j + 2] : w8[j];
+#pragma unroll
+    for (int j = 0; j < 5; ++j) x[j] = sh & 4 ? w[j + 1] : w[j];
+    // Byte u of word j is byte (sh & 3) + u of the pair (x[j], x[j + 1]);
+    // with swap, byte (sh & 3) + 3 - u.
+    const uint32_t s1 = sh & 3;
+    const uint32_t sel = (swap ? 0x0123u : 0x3210u) + 0x1111u * s1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = __byte_perm(x[j], x[j + 1], sel);
+    if (lo > 0 || hi < 16) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t m = byte_mask(lo, hi, j);
+        o[j] &= swap ? __byte_perm(m, 0, 0x0123) : m;
+      }
+    }
+  } else {
+    uint32_t w[4] = {0, 0, 0, 0};
+    for (int i = lo; i < hi; ++i) w[i >> 2] |= static_cast<uint32_t>(buf[at + i]) << (8 * (i & 3));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = swap ? __byte_perm(w[j], 0, 0x0123) : w[j];
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// Row r's offset and its length cut to what it may read: none for an
+// offset outside the buffer, nothing past the buffer's end or the row.
+__device__ __forceinline__ long long gather_len(const long long* __restrict__ offs,
+                                                const long long* __restrict__ lens, long long r,
+                                                long long n, long long rb, long long* off) {
+  const long long o = __ldg(offs + r), l = __ldg(lens + r);
+  *off = o;
+  return o < 0 || l < 0 || o > n ? 0 : min(l, min(n - o, rb));
+}
+
+// A team of `team` warps a row; the CTA's 8 warps are 8 / team teams.
+template <bool kWords>
+__global__ void __launch_bounds__(kGatherThreads)
+gather_rows_kernel(const uint8_t* __restrict__ buf, long long n,
+                   const long long* __restrict__ offs, const long long* __restrict__ lens,
+                   uint8_t* __restrict__ out, long long B, long long rb, int team) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = (static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x) >> 5;
+  const long long teams = static_cast<long long>(gridDim.x) * (kGatherThreads / 32) / team;
+  const long long total = B * rb;
+  const int first = 16 * (static_cast<int>(warp % team) * 32 + lane);
+#pragma unroll 1
+  for (long long r = warp / team; r < B; r += teams) {
+    const long long r0 = r * rb, r1 = r0 + rb;
+    long long off;
+    const long long len = gather_len(offs, lens, r, n, rb, &off);
+#pragma unroll 1
+    for (long long p = ((r0 + 15) & ~15LL) + first; p < r1; p += 512LL * team) {
+      const long long c = p - r0;  // the piece's start in the row
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (c + 16 <= rb) {  // inside the row: one window, none past its length
+        const int hi = static_cast<int>(min(16LL, len - c));
+        if (hi > 0) v = gather_window(buf, n, off + c, 0, hi, kWords);
+      } else {  // across rows: each one's window under its mask
+        for (long long j = r, cj = c; j < B && cj > -16; ++j, cj -= rb) {
+          long long oj = off, lj = len;
+          if (j != r) lj = gather_len(offs, lens, j, n, rb, &oj);
+          const int lo = static_cast<int>(max(0LL, -cj));
+          const int hi = static_cast<int>(min(16LL, lj - cj));
+          if (hi > lo) {
+            const uint4 w = gather_window(buf, n, oj + cj, lo, hi, kWords);
+            v.x |= w.x;
+            v.y |= w.y;
+            v.z |= w.z;
+            v.w |= w.w;
+          }
+          if (rb - cj >= 16) break;  // row j reaches the piece's end
+        }
+      }
+      if (p + 16 <= total) {
+        *reinterpret_cast<uint4*>(out + p) = v;
+      } else {
+        const uint32_t o[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int u = 0; u < 16; ++u)
+          if (p + u < total) out[p + u] = static_cast<uint8_t>(o[u >> 2] >> (8 * (u & 3)));
+      }
+    }
+  }
 }
 
 // The rows that meet a tile, tile-relative: end(j) and start(j) of row r0
@@ -501,18 +601,31 @@ crc32_kernel(const uint8_t* __restrict__ buf, long long n, const uint32_t* __res
 
 }  // namespace
 
+// out 16-byte aligned (the wrapper's): B rows of rb bytes; offs and lens
+// the rows' int64 offsets and lengths on the card.
 RXT_API int rxt_gather_rows(const void* buf, long long n, const void* offs, const void* lens,
-                            void* out, int B, int width, int words, int device, void* stream) {
+                            void* out, long long B, long long rb, int words, int device,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || B <= 0 || rb <= 0) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
+  // Teams of 2-8 warps a row only where the rows alone leave the SMs short
+  // of warps, and while each warp keeps 2 pieces a lane.
+  int team = 1;
+  while (team < 8 && B * team < 64LL * sms && 2048LL * team <= rb) team *= 2;
+  const long long per_cta = (kGatherThreads / 32) / team;
+  const auto grid = static_cast<unsigned>(min((B + per_cta - 1) / per_cta, 1LL << 20));
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const uint8_t*>(buf);
   const auto* o = static_cast<const long long*>(offs);
   const auto* l = static_cast<const long long*>(lens);
+  auto* d = static_cast<uint8_t*>(out);
   if (words)
-    gather_rows_kernel<true><<<B, kThreads, 0, s>>>(b, n, o, l, out, width);
+    gather_rows_kernel<true><<<grid, kGatherThreads, 0, s>>>(b, n, o, l, d, B, rb, team);
   else
-    gather_rows_kernel<false><<<B, kThreads, 0, s>>>(b, n, o, l, out, width);
+    gather_rows_kernel<false><<<grid, kGatherThreads, 0, s>>>(b, n, o, l, d, B, rb, team);
   return cudaGetLastError();
 }
 

@@ -378,7 +378,7 @@ def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
     plain versions' ms keyed by kernel (CUDA events; None off the card)."""
     device = torch.device(device)
     timed = device.type == "cuda"
-    header, _ = container.parse_archive(archive, with_streams=False)
+    header = container.parse_table(archive)
     p, k, d = header.params, header.block_size, header.delta
     ic = api._init_cum(p, header.prior_extra)
     arch = api._host_u8(archive).to(device)
@@ -409,10 +409,10 @@ def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
         coded_t = torch.from_numpy(coded).to(device)
         byts = words_to_bytes(words)[coded_t]
         del words, plain
-        bl_t = torch.from_numpy(bl[coded].astype(np.int64)).to(device)
-        keep = torch.arange(byts.shape[1], device=device)[None, :] < bl_t[:, None]
-        stored = gather_rows(arch, torch.from_numpy(header.stream_offs[s0:s1][coded]).to(device),
-                             bl_t, byts.shape[1])
+        bl_c = bl[coded].astype(np.int64)
+        keep = (torch.arange(byts.shape[1], device=device)[None, :]
+                < torch.from_numpy(bl_c).to(device)[:, None])
+        stored = gather_rows(arch, header.stream_offs[s0:s1][coded], bl_c, byts.shape[1])
         _require(torch.equal(torch.where(keep, byts, 0), stored),
                  f"chunk {c}: streams differ from the archive's")
         del byts, keep, stored
@@ -431,9 +431,10 @@ def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
     return out
 
 
-def decode_memory_bound(header) -> int:
-    """Bytes of device memory ``api.decode`` may hold at once for
-    ``header``'s archive, reckoned from one chunk's shapes: two chunk
+def decode_memory_bound(header: container.BlockTable) -> int:
+    """Bytes of device memory ``api.decode`` may hold at once for the
+    archive of ``header`` (:func:`container.parse_table`), reckoned from
+    one chunk's shapes: two chunk
     slots, each the largest chunk's slice of the archive (two are held:
     the next range's goes up while one decodes), its staged words
     (``rows x (n_words + 2)`` int32, the widest K3's input can be), K3's
@@ -495,7 +496,7 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
     chunk = min(api._lane_chunk(api.ENC_CHUNK_BYTES, k), api._lane_chunk(api.DEC_CHUNK_BYTES, k))
     _require(b <= chunk, "compare_staging takes one lane chunk")
     archive = api.encode(data, block_size=k, device=dev)
-    header, _ = container.parse_archive(archive, with_streams=False)
+    header = container.parse_table(archive)
     lanes = api._decode_lanes(header)
     arch = api._host_u8(archive).to(dev)
     out = {}
@@ -540,23 +541,24 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
                              **bound(2 * total + 9 * b, OPS_PER_BYTE["splice_payload"] * total)}
     del pay, pay_p, stored, rows
 
-    sel = lanes.order
+    sel = api._by_length(lanes.coded_lens)
     staged, _ = api._stage_lanes(arch, header, lanes, sel)
     wcap = staged.shape[1]
     sel_t = torch.from_numpy(sel).to(dev)
-    lens_o = torch.from_numpy(lanes.coded_lens[sel]).to(dev)
-    args = (arch, torch.from_numpy(header.stream_offs[sel]).to(dev), lens_o, wcap, True)
-    staged_p, plain_ms = plain_run(lambda: gather_rows_plain(*args), timed)
+    offs, lens = header.stream_offs[sel], lanes.coded_lens[sel]
+    table = api._to_device(np.stack([offs, lens]), dev)  # what the wrapper uploads
+    staged_p, plain_ms = plain_run(lambda: gather_rows_plain(arch, *table, wcap, True), timed)
     err = _max_abs(staged, staged_p)
     _require_rows((staged != staged_p).any(1),
                   f"gather_rows (words) differs from its plain version (max |diff| {err})")
     k2 = torch.nn.functional.pad(words, (0, 2))[sel_t, :wcap]
-    _require_rows(((staged != k2) & (lens_o > 0)[:, None]).any(1),
+    _require_rows(((staged != k2) & (table[1] > 0)[:, None]).any(1),
                   "gather_rows (words) differs from K2's streams")
-    moved = int(lens_o.sum())
+    moved = int(lens.sum())
     out["gather_rows"] = {"max_abs_err": err,
-                          "ms": kernel_ms(lambda: launch_gather_rows(*args[:3], staged_p, True)),
-                          "ms_call": kernel_ms(lambda: gather_rows(*args), call_ms),
+                          "ms": kernel_ms(lambda: launch_gather_rows(arch, *table, staged_p, True)),
+                          "ms_call": kernel_ms(lambda: gather_rows(arch, offs, lens, wcap, True),
+                                               call_ms),
                           "plain_ms": plain_ms, "wcap": wcap,
                           **bound(moved + 16 * b + 4 * b * wcap,
                                   OPS_PER_BYTE["gather_rows"] * 4 * b * wcap)}
@@ -564,19 +566,50 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
 
     ri = np.flatnonzero(lanes.raw)
     ri_t = torch.from_numpy(ri).to(dev)
-    args = (arch, torch.from_numpy(header.stream_offs[ri]).to(dev),
-            torch.from_numpy(lanes.block_lens[ri].astype(np.int64)).to(dev), k)
-    rows = gather_rows(*args)
-    rows_p = gather_rows_plain(*args, False)
+    offs, lens = header.stream_offs[ri], lanes.block_lens[ri].astype(np.int64)
+    table = api._to_device(np.stack([offs, lens]), dev)
+    rows = gather_rows(arch, offs, lens, k)
+    rows_p = gather_rows_plain(arch, *table, k, False)
     err_b = _max_abs(rows, rows_p)
     valid = torch.arange(k, device=dev)[None, :] < x.lens[ri_t][:, None]
     _require(err_b == 0 and torch.equal(rows, torch.where(valid, x.syms[ri_t], 0)),
              f"gather_rows (bytes) differs from its plain version or the blocks ({err_b})")
     out["gather_rows"]["max_abs_err"] = max(err, err_b)
     out["gather_rows"]["ms_bytes"] = (
-        kernel_ms(lambda: launch_gather_rows(*args[:3], rows_p, False)) if ri.size else None)
+        kernel_ms(lambda: launch_gather_rows(arch, *table, rows_p, False)) if ri.size else None)
+    out["gather_rows"]["edge_cases"] = gather_edge_cases(arch, (k, 1022, 37), (wcap, 13))
     out["raw_rows"] = int(ri.size)
     return out
+
+
+def gather_edge_cases(buf: torch.Tensor, byte_widths, word_widths, seed: int = SEED) -> int:
+    """S1 (``gather_rows``) against its plain version on ``buf`` and on views
+    of it 1, 7 and 15 bytes in (the buffer itself at any alignment), at
+    each width of ``byte_widths`` (bytes) and ``word_widths`` (words):
+    rows at offsets of every residue mod 16 and random lengths up to the
+    row's capacity, an empty row, a row as wide as its width, rows that
+    end at the buffer's last byte (full, one byte, empty at the end).
+    Raises AssertionError on any difference; returns the cases run."""
+    rng = np.random.default_rng(seed)
+    cases = 0
+    for a in (0, 1, 7, 15):
+        view = buf[a:]
+        n = view.shape[0]
+        for words, width in [(False, w) for w in byte_widths] + [(True, w) for w in word_widths]:
+            cap = 4 * width if words else width
+            if n < cap + 16 * 16:
+                continue
+            q = rng.integers(0, (n - cap) // 16, 64)
+            offs = np.concatenate([16 * q + np.arange(64) % 16, [0, 5, n - cap, n - 1, n]])
+            lens = np.concatenate([rng.integers(0, cap + 1, 64), [0, cap, cap, 1, 0]])
+            got = gather_rows(view, offs, lens, width, words)
+            table = api._to_device(np.stack([offs, lens]), view.device)
+            want = gather_rows_plain(view, *table, width, words)
+            _require(torch.equal(got, want),
+                     f"gather_rows ({'words' if words else 'bytes'}, width {width}, buffer "
+                     f"{a} bytes in) differs from its plain version")
+            cases += 1
+    return cases
 
 
 def check_staging(device: torch.device, n_blocks: int = 1024) -> dict:

@@ -8,7 +8,8 @@ encode's payload assembly (:357-399), and ``container.compute_crc`` /
 ``verify_crc`` (:278, :574).  Kernels: ``csrc/staging.cu``.
 
 - :func:`gather_rows` (S1): ragged rows out of a byte buffer, zero to a
-  fixed width, as bytes or as big-endian u32 words (K3's input);
+  fixed width, as bytes or as big-endian u32 words (K3's input), at
+  offsets and lengths the caller holds on the host (checked there);
 - :func:`splice_payload` (S2): the archive payload, each block's K2
   stream or its raw bytes, one after another, laid out by the wire
   lengths the caller holds on the host (checked there: no wait for the
@@ -22,7 +23,9 @@ encode's payload assembly (:357-399), and ``container.compute_crc`` /
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel on the current stream for CUDA tensors, counting the launch.
 Malformed offsets or lengths raise :class:`InvalidInputError` before any
-kernel or plain version reads the buffer.
+kernel or plain version reads the buffer: S1 and S2 take them as the
+host arrays the caller holds and check them there, so neither waits for
+the card.
 """
 
 from __future__ import annotations
@@ -69,48 +72,77 @@ def gather_rows_plain(buf: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor,
     return bytes_to_words(out) if words else out
 
 
-def gather_rows(buf: torch.Tensor, offs: torch.Tensor, lens: torch.Tensor, width: int,
-                words: bool = False) -> torch.Tensor:
+def gather_rows(buf: torch.Tensor, offs, lens, width: int, words: bool = False) -> torch.Tensor:
     """Row ``i`` is ``buf[offs[i] : offs[i] + lens[i]]`` followed by zeros.
 
-    Args: ``(N,)`` uint8 ``buf``, ``(B,)`` int64 ``offs`` and ``lens``,
-    the row width.  With ``words`` the rows are ``(B, width)`` int32
-    big-endian words (K3's input, ``4 * width`` bytes a row); without,
-    ``(B, width)`` uint8.  Raises :class:`InvalidInputError` where a row
-    starts or ends outside ``buf`` or is longer than its width.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel on the
-    current stream.
+    Args: ``(N,)`` uint8 ``buf``; ``(B,)`` int64 ``offs`` and ``lens`` on
+    the host (numpy arrays or CPU tensors) whatever the device: they are
+    the archive header's offsets and lengths, which the caller holds, so
+    the checks wait for nothing; the row width.  With ``words`` the rows
+    are ``(B, width)`` int32 big-endian words (K3's input, ``4 * width``
+    bytes a row); without, ``(B, width)`` uint8.  Raises
+    :class:`InvalidInputError` where a row starts or ends outside ``buf``
+    or is longer than its width, before anything goes up.  CPU tensors
+    take the plain version; for a CUDA ``buf`` the offsets and lengths go
+    up through pinned memory and the kernel is queued on the current
+    stream.
     """
     global gather_launches
     dev = buf.device
     expect(buf, "buf", torch.uint8, (None,), dev)
-    expect(offs, "offs", torch.int64, (None,), dev)
+    offs, lens = _host_int64(offs, "offs"), _host_int64(lens, "lens")
     b = offs.shape[0]
-    expect(lens, "lens", torch.int64, (b,), dev)
+    if lens.shape != (b,):
+        raise ValueError(f"lens: expected shape ({b},), got {lens.shape}")
     width = int(width)
     if width < 0:
         raise ValueError("width must be >= 0")
-    cap = 4 * width if words else width
-    if b and bool(((offs < 0) | (lens < 0) | (lens > cap)
-                   | (offs + lens > buf.shape[0])).any()):
+    if b and _rows_outside(offs, lens, 4 * width if words else width, buf.shape[0]):
         raise InvalidInputError()
     if not kernel_device(dev):
-        return gather_rows_plain(buf, offs, lens, width, words)
+        return gather_rows_plain(buf, torch.from_numpy(offs), torch.from_numpy(lens), width, words)
     out = torch.empty(b, width, dtype=torch.int32 if words else torch.uint8, device=dev)
     if b and width:
-        launch_gather_rows(buf, offs, lens, out, words)
+        table = torch.empty(2, b, dtype=torch.int64, pin_memory=True)  # one upload of both
+        table.numpy()[0], table.numpy()[1] = offs, lens
+        table = table.to(dev, non_blocking=True)
+        launch_gather_rows(buf, table[0], table[1], out, words)
         gather_launches += 1
     return out
 
 
+def _host_int64(a, name: str) -> np.ndarray:
+    """``a`` (a numpy array or a CPU tensor) as a 1-D int64 numpy array;
+    ValueError for another type, shape or device."""
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            raise ValueError(f"{name}: expected a host array, got a tensor on {a.device}")
+        a = a.numpy()
+    if not isinstance(a, np.ndarray) or a.dtype != np.int64 or a.ndim != 1:
+        raise ValueError(f"{name}: expected a 1-D int64 array")
+    return a
+
+
+def _rows_outside(offs: np.ndarray, lens: np.ndarray, cap: int, n: int) -> bool:
+    """Whether a row starts before the buffer's ``n`` bytes, ends past them
+    or is longer than ``cap`` (a row's bytes), by a few reductions."""
+    if offs.min() < 0 or lens.min() < 0 or lens.max() > cap:
+        return True
+    return bool((offs > n - lens).any())
+
+
 def launch_gather_rows(buf, offs, lens, out, words: bool) -> None:
-    """S1's launch alone into ``out`` (``(B, width)``), unchecked: what
+    """S1's launch alone into ``out`` (``(B, width)``, 16-byte aligned),
+    with ``offs`` and ``lens`` on the device, unchecked: what
     :func:`gather_rows` runs once its checks pass (and what a timing of
     the kernel alone calls)."""
+    if out.data_ptr() % 16:
+        raise ValueError("gather_rows: out must start 16-byte aligned")
     dev = buf.device
     err = _build.lib().rxt_gather_rows(
         buf.data_ptr(), buf.shape[0], offs.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        out.shape[0], out.shape[1], int(words), dev.index or 0, _build.stream_of(dev))
+        out.shape[0], out.shape[1] * out.element_size(), int(words), dev.index or 0,
+        _build.stream_of(dev))
     _build.check(err, "rxt_gather_rows")
 
 

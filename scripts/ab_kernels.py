@@ -11,12 +11,13 @@ of 4096 (``cuda_checks.phase3_data``, seed 7, its phase 3) and the main
 path's 16384 blocks of 4096 (64 MiB of ``testdata.mixed``, seed 2024);
 tpu_wide, delta 16, the warm-start prior.  K1 feeds K2, K2's streams feed
 K3 on lanes sorted by coded length (the main path's staging), and K4 and
-K5 code the symbols.  The staging kernels S2 (``splice_payload``) and S3
-(``crc32``) run through each checkout's own
-``cuda_checks.compare_staging`` (which holds them to their plain versions)
-at the main path's 16384 blocks and at an encode chunk's 65536 blocks of
-4096 (256 MiB of ``testdata.mixed``, seed 2024): the kernel's launch
-alone and a call of its wrapper with its checks (``_call``).  Both
+K5 code the symbols.  The staging kernels S1 (``gather_rows``: the
+archive's streams as K3's words, and its raw blocks' bytes, ``_bytes``),
+S2 (``splice_payload``) and S3 (``crc32``) run through each checkout's
+own ``cuda_checks.compare_staging`` (which holds them to their plain
+versions) at the main path's 16384 blocks and at an encode chunk's 65536
+blocks of 4096 (256 MiB of ``testdata.mixed``, seed 2024): the kernel's
+launch alone and a call of its wrapper with its checks (``_call``).  Both
 checkouts are timed alike by this script's own timers, put in place of
 their ``cuda_checks`` timers: a kernel on the card's clock after a sleep
 kernel that lets the host queue its runs (so a kernel shorter than its
@@ -42,7 +43,7 @@ import time
 from pathlib import Path
 
 SHAPES = ("1024x4096", "16384x4096", "65536x4096")
-STAGING = ("splice_payload", "crc32")
+STAGING = ("gather_rows", "splice_payload", "crc32")
 
 
 def device_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -152,6 +153,7 @@ def worker(root: Path, reps: int) -> None:
         for name in STAGING:
             times[shape][name] = res[name]["ms"]
             times[shape][name + "_call"] = res[name]["ms_call"]
+        times[shape]["gather_rows_bytes"] = res["gather_rows"]["ms_bytes"]
         arch = api.encode(inputs[shape], block_size=k, device=dev)
         digests.setdefault(shape, {})["archive"] = hashlib.sha256(arch).hexdigest()[:16]
     print(json.dumps({"root": str(root), "device": torch.cuda.get_device_name(0),

@@ -428,12 +428,12 @@ def test_gather_and_splice_kernels_at_their_edges(cuda_device):
     offs = torch.from_numpy(rng.integers(0, 9000 - 128, 200))
     redux_tpu_torch.reset_launch_counts()
     for words, width in ((True, 32), (False, 128), (False, 130)):
-        got = staging.gather_rows(buf.to(cuda_device), offs.to(cuda_device), lens.to(cuda_device),
-                                  width, words)
+        got = staging.gather_rows(buf.to(cuda_device), offs, lens, width, words)
         assert torch.equal(got.cpu(), staging.gather_rows(buf, offs, lens, width, words))
     with pytest.raises(InvalidInputError):
-        staging.gather_rows(buf.to(cuda_device), torch.tensor([8990], device=cuda_device),
-                            torch.tensor([11], device=cuda_device), 16)
+        staging.gather_rows(buf.to(cuda_device), torch.tensor([8990]), torch.tensor([11]), 16)
+    with pytest.raises(ValueError):  # the offsets and lengths are the host's
+        staging.gather_rows(buf.to(cuda_device), offs.to(cuda_device), lens, 16)
     b, k, n_words = 64, 300, 20
     blocks = torch.from_numpy(rng.integers(0, 256, (b, k), dtype=np.uint8))
     words = torch.from_numpy(rng.integers(-2**31, 2**31, (b, n_words))).to(torch.int32)
@@ -503,8 +503,6 @@ def test_decode_device_memory_is_flat_over_chunks(cuda_device, monkeypatch):
     and the 32-range peak is within 5% of the 8-range peak.  K3 and S1
     (words) launch once a range with coded blocks, S1 (bytes) once a range
     with raw blocks, S3 once a range, and no plain version runs."""
-    import numpy as np
-
     import redux_tpu_torch
     from redux_tpu_torch import api, container, cuda_checks, testdata
     from redux_tpu_torch.ops import decode, staging
@@ -517,7 +515,7 @@ def test_decode_device_memory_is_flat_over_chunks(cuda_device, monkeypatch):
     for n_ranges in (8, 32):
         data = testdata.mixed(n_ranges * 128 * k - 100, 31)
         arch = api.encode(data, block_size=k, device=cuda_device)
-        header, _ = container.parse_archive(arch, with_streams=False)
+        header = container.parse_table(arch)
         assert api.decode(arch, device=cuda_device) == data  # warm-up: pinned slots, allocator
         with monkeypatch.context() as m:
             for mod, name in ((decode, "decode_blocks_plain"), (staging, "gather_rows_plain"),
@@ -532,8 +530,7 @@ def test_decode_device_memory_is_flat_over_chunks(cuda_device, monkeypatch):
             counts = redux_tpu_torch.launch_counts()
             peak = torch.cuda.max_memory_allocated(cuda_device) - before
         assert back == data
-        raw = np.asarray(header.block_raw)
-        ranges = [raw[s0 : s0 + 128] for s0 in range(0, header.n_blocks, 128)]
+        ranges = [header.raw[s0 : s0 + 128] for s0 in range(0, header.n_blocks, 128)]
         assert len(ranges) == n_ranges
         coded = sum(bool((~r).any()) for r in ranges)
         with_raw = sum(bool(r.any()) for r in ranges)
@@ -741,3 +738,48 @@ def test_splice_kernel_refuses_malformed_rows(cuda_device):
         staging.splice_payload(words, blocks, raw_t, wire_t.to(torch.int64))
     assert redux_tpu_torch.launch_counts()["splice_payload"] == 0
     assert staging.splice_payload(words, blocks, raw_t, wire_t).shape == (84,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("align", [0, 1, 7, 15])
+def test_gather_kernel_edge_cases(cuda_device, align):
+    """S1 equal to its plain version on a buffer 0, 1, 7 or 15 bytes into
+    a 16-byte boundary: offsets at every residue mod 16, rows ending at
+    the buffer's last byte, empty and full rows, widths off 4 and 16 (and
+    under 16 bytes), wide raw rows taken by teams of warps
+    (``cuda_checks.gather_edge_cases``)."""
+    from redux_tpu_torch import cuda_checks
+
+    rng = np.random.default_rng(align)
+    buf = torch.from_numpy(rng.integers(0, 256, (1 << 20) + 16, dtype=np.uint8)).to(cuda_device)
+    cases = cuda_checks.gather_edge_cases(buf[align:], (16384, 4096, 1022, 37, 3),
+                                          (1024, 491, 13, 1), seed=align)
+    assert cases == 4 * 9
+
+
+@pytest.mark.cuda
+def test_results_are_prefaulted_on_the_card(cuda_device, monkeypatch):
+    """On the card's path too, encode prefaults the header and each
+    chunk's payload and decode each range's output, on the worker threads
+    (a byte a page: no kernel hint needed, so every machine allows it):
+    the ranges tile each result exactly, and the results are right."""
+    from redux_tpu_torch import api, testdata
+
+    touched = []
+    real = api._touch_pages
+    monkeypatch.setattr(api, "_touch_pages", lambda arr, a, b: touched.append((a, b))
+                        or real(arr, a, b))
+    monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * 4096)
+    monkeypatch.setattr(api, "DEC_CHUNK_BYTES", 128 * 4096)
+    data = testdata.mixed(3 * 128 * 4096 - 100, 41)
+    want = api.encode(data, block_size=4096, device="cpu")
+    touched.clear()
+    arch = api.encode(data, block_size=4096, device=cuda_device)
+    assert arch == want
+    for length in (len(arch), len(data)):
+        spans = sorted(touched)
+        assert spans[0][0] == 0 and spans[-1][1] == length
+        assert all(b0 == a1 for (_, b0), (a1, _) in zip(spans, spans[1:]))
+        touched.clear()
+        if length == len(arch):
+            assert api.decode(arch, device=cuda_device) == data

@@ -51,7 +51,8 @@ def chunked(monkeypatch):
 
 
 def _ranges(header):
-    """``(s0, s1, slice start, slice end)`` of each range of the archive."""
+    """``(s0, s1, slice start, slice end)`` of each range of the archive
+    (``header`` from ``container.parse_table``)."""
     lanes = api._decode_lanes(header)
     ends = header.stream_offs + np.where(lanes.raw, lanes.block_lens, lanes.coded_lens)
     return [(s0, min(s0 + CHUNK, header.n_blocks), int(header.stream_offs[s0]),
@@ -64,6 +65,7 @@ def _ranges(header):
     (385, 256, False, True),  # a last range of one raw block
     (300, 17, True, False),  # a short last range with a short last block
     (128, 256, False, False),  # one range
+    (1, 100, False, False),  # one short block
 ])
 def test_decode_equals_the_input_and_the_reference(chunked, n_blocks, tail, raw_range,
                                                    last_raw):
@@ -81,7 +83,10 @@ def test_decode_equals_the_input_and_the_reference(chunked, n_blocks, tail, raw_
     got = api.decode(arch, device="cpu", _timings=timings)
     assert type(got) is bytes
     assert got == data == ref_api.decode(arch)
-    assert set(timings) == {"parse", "upload", "kernels", "crc+fetch"}
+    assert set(timings) == {"parse", "upload", "kernels", "crc+fetch", "crc+fetch s3",
+                            "crc+fetch d2h", "crc+fetch copy"}
+    parts = sum(timings[f"crc+fetch {p}"] for p in ("s3", "d2h", "copy"))
+    assert parts == pytest.approx(timings["crc+fetch"])
 
 
 def test_each_call_takes_one_range(chunked, monkeypatch):
@@ -91,7 +96,7 @@ def test_each_call_takes_one_range(chunked, monkeypatch):
     nothing and one without raw blocks gathers no bytes."""
     data = _data(385, 100, True, False, 5)
     arch = api.encode(data, block_size=K, device="cpu")
-    header, _ = container.parse_archive(arch, with_streams=False)
+    header = container.parse_table(arch)
     lanes = api._decode_lanes(header)
     ranges = _ranges(header)
     staged, decoded, gathers = [], [], []
@@ -141,8 +146,7 @@ def test_a_flipped_payload_byte_raises(chunked, where):
     combined crc; the reference raises too."""
     data = _data(385, 100, True, False, 11)
     arch = api.encode(data, block_size=K, device="cpu")
-    header, _ = container.parse_archive(arch, with_streams=False)
-    ranges = _ranges(header)
+    ranges = _ranges(container.parse_table(arch))
     s0, s1, a, b = ranges[0] if where == "first" else ranges[-1]
     bad = bytearray(arch)
     bad[(a + b) // 2] ^= 0x20

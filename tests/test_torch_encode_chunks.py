@@ -201,3 +201,90 @@ def test_output_shrinks_in_place():
         with api._Output(4096) as out:
             raise RuntimeError("the call failed")
     assert out._ptr is None and out.view is None
+
+
+def _prefault_threads() -> list:
+    import threading
+
+    return [t for t in threading.enumerate() if t.name.startswith("redux-prefault")]
+
+
+def test_touch_pages_writes_a_byte_a_page():
+    """``_touch_pages`` writes a zero into the range's first byte and each
+    page start inside it, and nothing else."""
+    import mmap
+
+    page = mmap.PAGESIZE
+    arr = np.full(5 * page + 100, 0xFF, dtype=np.uint8)
+    lead = (-arr.ctypes.data) % page  # the first page start in arr
+    a, b = lead + 10, lead + 3 * page + 1
+    api._touch_pages(arr, a, b)
+    want = np.full_like(arr, 0xFF)
+    want[[a, lead + page, lead + 2 * page, lead + 3 * page]] = 0
+    assert np.array_equal(arr, want)
+    api._touch_pages(arr, b, b)  # an empty range touches nothing
+    assert np.array_equal(arr, want)
+
+
+def test_prefaulted_output_is_correct_and_outlives_the_call(monkeypatch):
+    """``_Output`` with its ranges prefaulted on worker threads (pieces of
+    64 KiB here): every range is touched before it is written, the result
+    is what was written, held by its caller alone, and survives ``gc``; the
+    threads are joined when it is handed over."""
+    monkeypatch.setattr(api._Output, "TOUCH_PIECE", 1 << 16)
+    n = (1 << 20) + 123
+    src = api.torch.from_numpy(np.random.default_rng(2).integers(0, 256, n, dtype=np.uint8))
+    with api._Output(n) as out:
+        for a in range(0, n, 300_000):
+            out.prefault(a, min(a + 300_000, n))
+        assert len(out._touches) == sum(-(-min(300_000, n - a) // (1 << 16))
+                                        for a in range(0, n, 300_000))
+        for a in range(0, n, 300_000):
+            b = min(a + 300_000, n)
+            out.ready(a, b)
+            assert all(done.done() for p, q, done in out._touches if p < b and a < q)
+            out.view[a:b].copy_(src[a:b])
+        got = out.result(n)
+    assert sys.getrefcount(got) == 2
+    assert not _prefault_threads() and out._pool is None
+    gc.collect()
+    assert got == bytes(src.numpy())
+
+
+def test_a_failing_call_joins_its_prefault_and_frees_the_output():
+    """A call that raises with prefaults queued: the exit cancels what has
+    not started, waits for what has, and only then frees the object."""
+    with pytest.raises(RuntimeError):
+        with api._Output(64 << 20) as out:
+            out.prefault(0, 64 << 20)
+            raise RuntimeError("the call failed")
+    assert out._ptr is None and out.view is None and out._pool is None
+    assert not _prefault_threads()
+
+
+@pytest.mark.parametrize("n_blocks,tail", [(300, 17), (128, 256)])
+def test_prefault_touches_only_what_is_written(chunked, monkeypatch, n_blocks, tail):
+    """Encode prefaults the header and each chunk's payload once its wire
+    lengths are known: the ranges tile the archive exactly, never past
+    its end (the result's tail that ``_PyBytes_Resize`` gives back).
+    Decode prefaults each range of blocks' output: they tile the input."""
+    touched = []
+    real = api._touch_pages
+
+    def record(arr, a, b):
+        touched.append((a, b))
+        real(arr, a, b)
+
+    monkeypatch.setattr(api, "_touch_pages", record)
+    monkeypatch.setattr(api, "DEC_CHUNK_BYTES", CHUNK * K)
+    data = _data(n_blocks, tail, False, 8)
+    arch = api.encode(data, block_size=K, device="cpu")
+    assert arch == ref_api.encode(data, block_size=K)
+    spans = sorted(touched)
+    assert spans[0][0] == 0 and spans[-1][1] == len(arch)
+    assert all(b0 == a1 for (_, b0), (a1, _) in zip(spans, spans[1:]))
+    touched.clear()
+    assert api.decode(arch, device="cpu") == data
+    spans = sorted(touched)
+    assert spans[0][0] == 0 and spans[-1][1] == len(data)
+    assert all(b0 == a1 for (_, b0), (a1, _) in zip(spans, spans[1:]))

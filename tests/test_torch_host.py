@@ -149,6 +149,76 @@ def test_archive_rejections_match_reference():
             container.build_archive(Parameters.tpu_wide(), 4, 0, [], None, delta)
 
 
+def _table_equals_the_reference(arch: bytes) -> None:
+    """``container.parse_table``'s arrays hold the reference's lists, and
+    ``container.parse_archive`` (built from them) the reference's header."""
+    t = container.parse_table(arch)
+    rh, _ = ref_container.parse_archive(arch, with_streams=False)
+    assert t.byte_lens.dtype == np.int64 and t.raw.dtype == bool
+    assert t.byte_lens.tolist() == rh.block_byte_lens
+    assert tuple(t.raw.tolist()) == rh.block_raw
+    np.testing.assert_array_equal(t.stream_offs, rh.stream_offs)
+    assert (t.block_size, t.orig_len, t.delta, t.crc32, t.n_blocks) == (
+        rh.block_size, rh.orig_len, rh.delta, rh.crc32, rh.n_blocks)
+    assert dataclasses.asdict(t.params) == dataclasses.asdict(rh.params)
+    if rh.prior_extra is None:
+        assert t.prior_extra is None
+    else:
+        np.testing.assert_array_equal(t.prior_extra, rh.prior_extra)
+    h, _ = container.parse_archive(arch, with_streams=False)
+    for field in ("block_byte_lens", "block_raw", "block_lens"):
+        assert getattr(h, field) == getattr(rh, field), field
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in (ROOT / "tests" / "golden_torch").glob(
+    "*.rxt")))
+def test_block_table_equals_the_reference_on_the_goldens(name):
+    _table_equals_the_reference((ROOT / "tests" / "golden_torch" / name).read_bytes())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_block_table_equals_the_reference_on_random_archives(seed):
+    """Random stream lengths and raw flags (an empty stream among them), with
+    and without a prior, 1 to 300 blocks."""
+    rng = np.random.default_rng(seed)
+    n_blocks = [1, 5, 64, 300][seed]
+    streams, raw, prior, orig_len, bs = _archive_args(rng, seed % 2 == 1, n_blocks, 50)
+    streams[0] = b""
+    arch = ref_container.build_archive(RefParameters.tpu_wide(), bs, orig_len, streams, prior,
+                                       16, 7, raw)
+    _table_equals_the_reference(arch)
+
+
+def _parse_outcome(parse, arch):
+    """The name of the exception ``parse(arch)`` raises, or None."""
+    try:
+        parse(arch)
+    except Exception as e:  # noqa: BLE001 - the class is compared
+        return type(e).__name__
+    return None
+
+
+def test_container_fuzz_raises_the_same_class_in_both_packages():
+    """Every archive of the container fuzz pattern (``cuda_checks.corruptions``:
+    truncations, bit flips, garbage) is refused by the reference's
+    ``parse_archive`` and the port's ``parse_table`` and ``parse_archive``
+    with the same exception class, or parsed by all three to the same
+    header."""
+    from redux_tpu_torch import api, cuda_checks, testdata
+
+    data = testdata.mixed(6000, 5)
+    arch = api.encode(data, block_size=256, device="cpu")
+    seen = set()
+    for kind, bad in cuda_checks.corruptions(arch):
+        ref = _parse_outcome(lambda a: ref_container.parse_archive(a, with_streams=False), bad)
+        assert _parse_outcome(container.parse_table, bad) == ref, kind
+        assert _parse_outcome(container.parse_archive, bad) == ref, kind
+        if ref is None:
+            _table_equals_the_reference(bad)
+        seen.add((kind, ref))
+    assert ("truncation", "InvalidInputError") in seen and ("bit flip", None) in seen
+
+
 def test_crc_matches_reference():
     data = bytes(range(256)) * 7
     assert container.compute_crc(data) == ref_container.compute_crc(data)

@@ -86,6 +86,50 @@ def test_gather_rows_refuses_rows_outside_the_buffer(offs, lens, width, monkeypa
         staging.gather_rows(buf, torch.tensor(offs), torch.tensor(lens), width)
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_host_check_refuses_the_rows_the_device_check_refused(seed):
+    """The host's check (numpy, before anything goes up) refuses a set of
+    rows exactly when the check the wrapper ran on the device refused it:
+    ``(offs < 0) | (lens < 0) | (lens > cap) | (offs + lens > n)`` for any
+    row.  Rows at the edges: an offset at the buffer's end, a length at the
+    row's capacity, one past either."""
+    rng = np.random.default_rng(seed)
+    n, width = 700, 11
+    buf = torch.zeros(n, dtype=torch.uint8)
+    for words in (False, True):
+        cap = 4 * width if words else width
+        for _ in range(40):
+            b = int(rng.integers(1, 6))
+            offs = rng.integers(-2, n + 2, b)
+            lens = rng.integers(-1, cap + 2, b)
+            pick = rng.integers(0, 4)
+            offs[0], lens[0] = [(n, 0), (n - cap, cap), (n - cap + 1, cap), (0, cap + 1)][pick]
+            o, ln = torch.from_numpy(offs), torch.from_numpy(lens)
+            device_check = bool(((o < 0) | (ln < 0) | (ln > cap) | (o + ln > n)).any())
+            assert staging._rows_outside(offs, lens, cap, n) == device_check
+            if device_check:
+                with pytest.raises(InvalidInputError):
+                    staging.gather_rows(buf, offs, lens, width, words)
+            else:
+                got = staging.gather_rows(buf, offs, lens, width, words)
+                assert got.shape == (b, width)
+
+
+def test_gather_rows_takes_host_arrays():
+    """Numpy arrays and CPU tensors give the same rows; offsets on another
+    device than the host's are refused (the wrapper checks them there)."""
+    rng = np.random.default_rng(9)
+    buf = torch.from_numpy(rng.integers(0, 256, 3000, dtype=np.uint8))
+    offs, lens = rng.integers(0, 2900, 40), rng.integers(0, 60, 40)
+    got = staging.gather_rows(buf, offs, lens, 15, words=True)
+    assert torch.equal(got, staging.gather_rows(buf, torch.from_numpy(offs),
+                                                torch.from_numpy(lens), 15, words=True))
+    with pytest.raises(ValueError):
+        staging.gather_rows(buf, torch.empty(40, dtype=torch.int64, device="meta"), lens, 15)
+    with pytest.raises(ValueError):
+        staging.gather_rows(buf, offs[None], lens, 15)
+
+
 def test_gather_rows_word_mode_takes_four_bytes_a_word():
     """In word mode a row holds ``4 * width`` bytes; one more is refused."""
     buf = torch.arange(64, dtype=torch.uint8)
@@ -303,6 +347,137 @@ def test_crc_kernel_algorithm_equals_zlib(align, ctas):
         assert _crc_kernel_model(data, align, 32, 64, ctas) == zlib.crc32(data), n
 
 
+def _byte_perm(x: int, y: int, sel: int) -> int:
+    """CUDA's ``__byte_perm``: byte i of the result is byte ``sel`` nibble i
+    of the pair (x bytes 0-3, y bytes 4-7)."""
+    v = y << 32 | x
+    return sum(((v >> 8 * (sel >> 4 * i & 7)) & 0xFF) << 8 * i for i in range(4))
+
+
+def _byte_mask(lo: int, hi: int, word: int) -> int:
+    a, b = min(max(lo - 4 * word, 0), 4), min(max(hi - 4 * word, 0), 4)
+    return ((1 << 8 * b) - 1) & ~((1 << 8 * a) - 1)
+
+
+def _gather_launch(b: int, rb: int, sms: int) -> tuple[int, int]:
+    """``rxt_gather_rows``'s team of warps a row and its grid of 8-warp CTAs."""
+    team = 1
+    while team < 8 and b * team < 64 * sms and 2048 * team <= rb:
+        team *= 2
+    per_cta = 8 // team
+    return team, min(-(-b // per_cta), 1 << 20)
+
+
+def _gather_kernel_model(buf: np.ndarray, base: int, offs, lens, width: int, words: bool,
+                         sms: int) -> np.ndarray:
+    """``csrc/staging.cu::gather_rows_kernel`` and its entry step for step,
+    thread by thread, for ``buf`` at address ``base``: the flat output of
+    rows of ``rb`` bytes in 16-byte pieces, each owned by the row it starts
+    in, lane l of a row's team taking pieces 16 l, 16 (l + 32 team), ...
+    from the row's first 16-byte boundary; a piece's windows as at most two
+    aligned 16-byte loads (asserted inside the buffer), realigned and (in
+    word mode) byte-reversed by one ``__byte_perm`` a word and masked, or
+    byte loads (asserted inside the buffer) where a load would leave it."""
+    n, b = buf.size, len(offs)
+    rb = 4 * width if words else width
+    total = b * rb
+    out = np.zeros(total + 16, dtype=np.uint8)
+    end = base + n
+
+    def chunk(c):  # an aligned 16-byte load, as four little-endian words
+        assert c % 16 == 0 and base <= c and c + 16 <= end, "a load outside the buffer"
+        return list(buf[c - base : c - base + 16].view("<u4").tolist())
+
+    def window(at, lo, hi):
+        p = base + at
+        c0, sh = p & ~15, p & 15
+        need_a, need_b = sh + lo < 16, sh + hi > 16
+        if (not need_a or (c0 >= base and c0 + 16 <= end)) and (
+                not need_b or (c0 + 16 >= base and c0 + 32 <= end)):
+            w8 = (chunk(c0) if need_a else [0] * 4) + (chunk(c0 + 16) if need_b else [0] * 4)
+            w = [w8[j + 2] if sh & 8 else w8[j] for j in range(6)]
+            x = [w[j + 1] if sh & 4 else w[j] for j in range(5)]
+            sel = (0x0123 if words else 0x3210) + 0x1111 * (sh & 3)
+            o = [_byte_perm(x[j], x[j + 1], sel) for j in range(4)]
+            if lo > 0 or hi < 16:
+                for j in range(4):
+                    m = _byte_mask(lo, hi, j)
+                    o[j] &= _byte_perm(m, 0, 0x0123) if words else m
+            return o
+        w = [0] * 4
+        for i in range(lo, hi):
+            assert 0 <= at + i < n, "a byte outside the buffer"
+            w[i >> 2] |= int(buf[at + i]) << 8 * (i & 3)
+        return [_byte_perm(v, 0, 0x0123) for v in w] if words else w
+
+    def row(r):
+        o, ln = int(offs[r]), int(lens[r])
+        return o, 0 if o < 0 or ln < 0 or o > n else min(ln, n - o, rb)
+
+    team, grid = _gather_launch(b, rb, sms)
+    teams = grid * 8 // team
+    for cta in range(grid):
+        for t in range(256):
+            lane, warp = t & 31, (cta * 256 + t) >> 5
+            first = 16 * ((warp % team) * 32 + lane)
+            for r in range(warp // team, b, teams):
+                r0, r1 = r * rb, r * rb + rb
+                off, ln = row(r)
+                for p in range(((r0 + 15) & ~15) + first, r1, 512 * team):
+                    c, v = p - r0, [0] * 4
+                    if c + 16 <= rb:
+                        hi = min(16, ln - c)
+                        if hi > 0:
+                            v = window(off + c, 0, hi)
+                    else:
+                        j, cj = r, c
+                        while j < b and cj > -16:
+                            oj, lj = row(j)
+                            lo, hi = max(0, -cj), min(16, lj - cj)
+                            if hi > lo:
+                                v = [a | w for a, w in zip(v, window(oj + cj, lo, hi))]
+                            if rb - cj >= 16:
+                                break
+                            j, cj = j + 1, cj - rb
+                    piece = np.array(v, dtype="<u4").view(np.uint8)
+                    m = min(16, total - p)
+                    out[p : p + m] = piece[:m]
+    return out[:total].reshape(b, rb)
+
+
+@pytest.mark.parametrize("words", [False, True])
+@pytest.mark.parametrize("align", [0, 1, 7, 15])
+def test_gather_kernel_algorithm_equals_a_slice_loop(words, align):
+    """The kernel's algorithm (``_gather_kernel_model``) equals a numpy slice
+    loop for a buffer at any alignment: offsets at every residue mod 16,
+    rows ending at the buffer's last byte, widths that are not multiples of
+    4 or 16 (rows under 16 bytes too), empty rows and full rows, one warp a
+    row and teams of 2-8 warps; and it never reads outside the buffer."""
+    rng = np.random.default_rng(align * 2 + words)
+    for width, sms in ((3, 4), (37, 4), (13, 4), (300, 1), (1030, 1), (2100, 1), (4096, 2)):
+        cap = 4 * width if words else width
+        n = cap + 16 * 24 + int(rng.integers(0, 16))
+        buf = rng.integers(0, 256, n, dtype=np.uint8)
+        offs = np.concatenate([16 * rng.integers(0, (n - cap) // 16, 16) + np.arange(16),
+                               [n - cap, n - 1, n, 0]])
+        lens = np.concatenate([rng.integers(0, cap + 1, 16), [cap, 1, 0, 0]])
+        got = _gather_kernel_model(buf, 4096 + align, offs, lens, width, words, sms)
+        want = _slice_loop(buf, offs, lens, cap)
+        if words:
+            want = want.reshape(len(offs), width, 4)[:, :, ::-1].reshape(len(offs), cap)
+        assert np.array_equal(got, want), width
+
+
+def test_gather_launch_teams():
+    """One warp a row where the rows fill the SMs or are narrow; 2-8 warps a
+    row for a few wide rows, each warp keeping 2 pieces a lane."""
+    assert _gather_launch(16384, 1964, 132) == (1, 2048)
+    assert _gather_launch(512, 4096, 132) == (4, 256)
+    assert _gather_launch(100, 2100, 132) == (2, 25)
+    assert _gather_launch(100, 16384, 132) == (8, 100)
+    assert _gather_launch(3, 37, 132) == (1, 1)
+
+
 def _random_triple(rng, b, k, n_words):
     blocks = torch.from_numpy(rng.integers(0, 256, (b, k), dtype=np.uint8))
     words = torch.from_numpy(rng.integers(-2**31, 2**31, (b, n_words))).to(torch.int32)
@@ -430,7 +605,8 @@ def test_multi_chunk_encode_equals_the_reference(params, delta, k, monkeypatch):
     assert 25 <= sum(header.block_raw) < 300
     timings = {}
     assert api.decode(arch, device="cpu", _timings=timings) == data
-    assert set(timings) == {"parse", "upload", "kernels", "crc+fetch"}
+    assert set(timings) == {"parse", "upload", "kernels", "crc+fetch", "crc+fetch s3",
+                            "crc+fetch d2h", "crc+fetch copy"}
     # Each range of 128 blocks gathers its raw blocks' bytes, then its
     # coded blocks' words (K3's input).
     raw = np.asarray(header.block_raw)
