@@ -10,12 +10,14 @@ golden archives of ``tests/golden_torch/``, then drives
 ``redux_tpu_torch.api.encode`` -> ``decode`` over 64 MiB of generated
 data three ways: the default route (K1 -> K2, K3, with S1 row gather, S2
 payload splice and S3 crc32 around them: the data crosses the bus once
-each way), the fused route (``REDUX_TPU_ENC_FUSED=1``: K4), and
-sharded over a device list (``data_parallel_mesh()`` and two shards on
-one card), plus the sharded K5 entry at the main path's shapes.  Each
-route's archive must equal the default route's, each round trip must be
-byte-equal, and each route must have launched its kernels (counts reset
-just before it, read just after).  Phase 8 drives the other routes: the
+each way), the fused route (``REDUX_TPU_ENC_FUSED=1``: K4), and over the
+device lists ``data_parallel_mesh()`` and ``[dev, dev]`` (each card
+uploads, codes, splices, checks and fetches its own shares: its launches
+must be what the share plan ``api._shares`` gives it, its peak device
+memory under one card's reckoning), plus the sharded K5 entry at the
+main path's shapes.  Each route's archive must equal the default route's,
+each round trip must be byte-equal, and each route must have launched
+its kernels (counts reset just before it, read just after).  Phase 8 drives the other routes: the
 CLI at its defaults ((8,30,32), K1 -> K2 and K3 in their u64
 instantiations) over the same 64 MiB through files, those kernels against
 their plain versions at the main shape, ``api.encode_auto`` ->
@@ -35,7 +37,10 @@ multi-GB size: 2 GiB + 1 MiB of ``testdata.mixed`` through ``api.encode``
 chunk and of K3 a range of blocks, the encode's device memory held under
 its reckoning from one chunk's shapes and the decode's under two ranges'
 worth, two chunks held to the plain versions, S1-S3 held to
-theirs on one 65,536-lane chunk), the bench on 256 MiB of
+theirs on one 65,536-lane chunk), the same input over ``[dev, dev]`` and
+over every card where there are two or more (archives byte-equal to the
+one-card archive, launches a card as the share plan gives them, each
+card's peak device memory printed), the bench on 256 MiB of
 ``text_like`` and on the first 1 GiB of the big input, the CLI over 512
 MiB (two chunks each way at (8,30,32), one held to the plain versions),
 and the container corruption sweep through K3, then phase 5's round trip
@@ -146,7 +151,7 @@ def _cli(argv, dev):
 
 def _sync(dev):
     if dev.type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
 
 
 def _coders(counts):
@@ -408,6 +413,125 @@ def _peak_device_gib(dev):
     return peak
 
 
+def _want_per_card(cards, arch):
+    """Each card's launches after ``api.encode`` and after ``api.decode``
+    of ``arch`` over the device list ``cards``,
+    as the share plan (``api._shares``) gives them: encoding, K1, K2, S2
+    and S3 once a share; decoding, K3 and S1 (words) once a share with
+    coded blocks, S1 (bytes) once a share with raw blocks, S3 once a
+    share.  Keyed by card (a card the list names twice sums both)."""
+    import redux_tpu_torch
+    from redux_tpu_torch import api, container
+
+    header = container.parse_table(arch)
+    k, n_blocks = header.block_size, header.n_blocks
+    zero = dict.fromkeys(redux_tpu_torch.launch_counts(), 0)
+    want_enc = {d: dict(zero) for d in cards}
+    for step in api._shares(n_blocks, api._lane_chunk(api.ENC_CHUNK_BYTES, k), len(cards)):
+        for sh in step:
+            for name in ("model_values", "encode", "splice_payload", "crc32"):
+                want_enc[cards[sh.card]][name] += 1
+    want_dec = {d: dict(w) for d, w in want_enc.items()}
+    for step in api._shares(n_blocks, api._lane_chunk(api.DEC_CHUNK_BYTES, k), len(cards)):
+        for sh in step:
+            raw, w = header.raw[sh.s0 : sh.s1], want_dec[cards[sh.card]]
+            coded = int((~raw).any())
+            w["decode"] += coded
+            w["gather_rows"] += coded + int(raw.any())
+            w["crc32"] += 1
+    return want_enc, want_dec
+
+
+def _dp_route(name, data, ref_arch, devices, one_card_bound):
+    """``api.encode`` -> ``decode`` of ``data`` over the device list
+    ``devices``, the launch counts reset just before the encode and read
+    after each way.  The archive must equal ``ref_arch`` (one card's) and
+    the round trip be byte-equal; each card's launches must be what the
+    share plan gives it (:func:`_want_per_card`); each card's peak device
+    memory each way (its rise over what it held before) must stay under
+    the sum, over the list's entries on it, of the one-card reckoning
+    from that entry's shares (``cuda_checks.encode_memory_bound`` /
+    ``decode_memory_bound``), and with ``one_card_bound`` under the
+    one-card reckoning of the whole input, whatever the card; card 0
+    holds no more than 16 MiB over any other card.  Prints the wall clock
+    each way, each card's peak, launches and the host RSS at the end."""
+    import redux_tpu_torch
+    from redux_tpu_torch import api, container, cuda_checks
+
+    params = api.Parameters.tpu_wide()
+    cards = api._cards(devices)
+    phys = list(dict.fromkeys(cards))
+    k = api._default_block_size(len(data))
+    n_blocks = -(-len(data) // k)
+    gib = 1 << 30
+    for d in phys:
+        _sync(d)
+        _peak_device_gib(d)
+    before = {d: torch.cuda.memory_allocated(d) / gib for d in phys}
+    rss0 = _rss_gib()
+    redux_tpu_torch.reset_launch_counts()
+    t0 = time.perf_counter()
+    arch = api.encode(data, device=devices)
+    for d in phys:
+        _sync(d)
+    t1 = time.perf_counter()
+    enc_counts = {d: redux_tpu_torch.launch_counts(d) for d in phys}
+    peak_enc = {d: _peak_device_gib(d) for d in phys}
+    rss1 = _rss_gib()
+    if arch != ref_arch:
+        raise AssertionError(f"{name}: archive differs from one card's")
+    before_dec = {d: torch.cuda.memory_allocated(d) / gib for d in phys}
+    t2 = time.perf_counter()
+    back = api.decode(arch, device=devices)
+    for d in phys:
+        _sync(d)
+    t3 = time.perf_counter()
+    counts = {d: redux_tpu_torch.launch_counts(d) for d in phys}
+    peak_dec = {d: _peak_device_gib(d) for d in phys}
+    if back != data:
+        raise AssertionError(f"{name}: round trip is not byte-equal")
+    del back
+    want_enc, want_dec = _want_per_card(cards, arch)
+    if enc_counts != want_enc or counts != want_dec:
+        raise AssertionError(f"{name}: launches a card {enc_counts} after encode, {counts} after "
+                             f"decode; the share plan gives {want_enc}, then {want_dec}")
+    header = container.parse_table(arch)
+    enc_steps = api._shares(n_blocks, api._lane_chunk(api.ENC_CHUNK_BYTES, k), len(cards))
+    dec_steps = api._shares(n_blocks, api._lane_chunk(api.DEC_CHUNK_BYTES, k), len(cards))
+    enc_own, dec_own = api._by_card(enc_steps, len(cards)), api._by_card(dec_steps, len(cards))
+    rise_enc = {d: peak_enc[d] - before[d] for d in phys}
+    rise_dec = {d: peak_dec[d] - before_dec[d] for d in phys}
+    for d in phys:
+        mine = [j for j, c in enumerate(cards) if c == d]
+        b_enc = sum(cuda_checks.encode_memory_bound(
+            sum(sh.s1 - sh.s0 for sh in enc_own[j]) * k, k, params) for j in mine if enc_own[j])
+        b_dec = sum(cuda_checks.decode_memory_bound(header, dec_own[j]) for j in mine if dec_own[j])
+        if one_card_bound:
+            b_enc = min(b_enc, cuda_checks.encode_memory_bound(len(data), k, params))
+            b_dec = min(b_dec, cuda_checks.decode_memory_bound(header))
+        if rise_enc[d] > b_enc / gib or rise_dec[d] > b_dec / gib:
+            raise AssertionError(f"{name}: {d} rose {rise_enc[d]:.3f} GiB encoding (bound "
+                                 f"{b_enc / gib:.3f}), {rise_dec[d]:.3f} GiB decoding (bound "
+                                 f"{b_dec / gib:.3f})")
+        print(f"{name}: {d} peak device memory {peak_enc[d]:.3f} GiB encode (a rise of "
+              f"{rise_enc[d]:.3f} against {b_enc / gib:.3f}), {peak_dec[d]:.3f} GiB decode (a "
+              f"rise of {rise_dec[d]:.3f} against {b_dec / gib:.3f}); launches "
+              f"{json.dumps(counts[d])}")
+    others = [d for d in phys if d != phys[0]]
+    if others and max(rise_enc[phys[0]] - max(rise_enc[d] for d in others),
+                      rise_dec[phys[0]] - max(rise_dec[d] for d in others)) > 1 / 64:
+        raise AssertionError(f"{name}: card 0 holds more than the others: {rise_enc}, {rise_dec}")
+    mb = len(data) / 1e6
+    n_enc = sum(len(step) for step in enc_steps)
+    print(f"{name}: {len(data)} bytes over {len(cards)} devices ({len(phys)} cards), "
+          f"{n_enc} shares in {len(enc_steps)} steps, archive byte-equal to one card's, round "
+          f"trip byte-equal, launches a card as the share plan gives them; encode "
+          f"{t1 - t0:.3f} s ({mb / (t1 - t0):.3f} MB/s), decode {t3 - t2:.3f} s "
+          f"({mb / (t3 - t2):.3f} MB/s), wall clock with host work; host RSS {rss0:.3f} GiB "
+          f"before, {rss1:.3f} GiB at the encode's end, {_rss_gib():.3f} GiB at the decode's end")
+    return arch
+
+
 def _at_size(dev, data):
     """Phase 11 (a): ``api.encode`` -> ``decode`` of ``data`` at the shipped
     defaults, launch counts reset just before the encode and read after
@@ -466,17 +590,11 @@ def _at_size(dev, data):
     if back != data:
         raise AssertionError("at size: round trip (with _timings) is not byte-equal")
     del back
-    # Encode: K1, K2, S2 and S3 once a chunk.  Decode, a range of blocks a
-    # chunk: K3 and S1 (words) once a range with coded blocks, S1 (bytes)
-    # once a range with raw blocks, S3 once a range.
     header = container.parse_table(arch)
     ranges = [header.raw[s0 : s0 + dec_chunk] for s0 in range(0, n_blocks, dec_chunk)]
     coded = sum(bool((~r).any()) for r in ranges)
     with_raw = sum(bool(r.any()) for r in ranges)
-    want_enc = dict.fromkeys(counts, 0) | {"model_values": n_enc, "encode": n_enc,
-                                           "splice_payload": n_enc, "crc32": n_enc}
-    want_dec = want_enc | {"decode": coded, "gather_rows": coded + with_raw,
-                           "crc32": n_enc + n_dec}
+    want_enc, want_dec = (want[dev] for want in _want_per_card([dev], arch))
     if enc_counts != want_enc or counts != want_dec:
         raise AssertionError(f"at size: launches {enc_counts} after encode, {counts} after "
                              f"decode; want {want_enc}, then {want_dec}")
@@ -505,6 +623,7 @@ def _at_size(dev, data):
           f"{rss_now0:.3f} GiB before the encode, {rss_now1:.3f} GiB at its end (+"
           f"{rss_now1 - rss_now0:.3f} GiB with the archive's {len(arch) / (1 << 30):.3f} GiB)")
     _check_chunks("at size", data, arch, dev, [n_enc // 2, n_enc - 1])
+    return arch
 
 
 def _check_chunks(what, data, arch, dev, chunks):
@@ -579,8 +698,17 @@ def phase11(dev):
           f"thread); peak host RSS {rss0:.3f} GiB "
           f"before, {_peak_rss_gib():.3f} GiB after")
 
-    # (a) The main path at size; S1-S3 on one 65,536-lane chunk of its input.
-    _at_size(dev, big)
+    # (a) The main path at size, on one card, then over two shares a step
+    # on it and over every card; S1-S3 on one 65,536-lane chunk of its input.
+    big_arch = _at_size(dev, big)
+    from redux_tpu_torch.parallel import data_parallel_mesh
+
+    lists = [("dp[dev,dev]", [dev, dev])]
+    if torch.cuda.device_count() > 1:
+        lists.append((f"dp[{torch.cuda.device_count()} gpu]", data_parallel_mesh()))
+    for label, devices in lists:
+        _dp_route(f"at size {label}", big, big_arch, devices, one_card_bound=False)
+    del big_arch
     t0 = time.perf_counter()
     chunk_bytes = api._lane_chunk(api.ENC_CHUNK_BYTES, 4096) * 4096
     _print_staging(f"at size, one chunk of {chunk_bytes} bytes",
@@ -776,8 +904,9 @@ def main() -> int:
     from redux_tpu_torch.parallel import data_parallel_mesh, encode_blocks_m_sharded
 
     mesh_all = data_parallel_mesh()
-    _route(f"dp[{len(mesh_all)} gpu]", data, arch, mesh_all, main_on)
-    _route("dp[dev,dev]", data, arch, [dev, dev], main_on)
+    for label, devices in ((f"dp[{len(mesh_all)} gpu]", mesh_all), ("dp[dev,dev]", [dev, dev])):
+        _route(label, data, arch, devices, main_on)
+        _dp_route(label, data, arch, devices, one_card_bound=True)
     redux_tpu_torch.reset_launch_counts()
     t0 = time.perf_counter()
     sharded = encode_blocks_m_sharded(x.syms, x.lens, x.init_cum, x.params, x.n_words,

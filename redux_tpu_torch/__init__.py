@@ -27,6 +27,9 @@ other routes, and ``python -m redux_tpu_torch.cli`` the command line.
 
 from __future__ import annotations
 
+import torch
+
+from . import _build
 from .api import decode, encode
 from .errors import EofError, InvalidInputError, ReduxError, ReduxIOError
 from .oracle import compress, compress_bytes, decompress, decompress_bytes
@@ -44,8 +47,16 @@ __all__ = [
 ]
 
 
-def launch_counts() -> dict:
-    """Kernel launches since the last reset, by kernel."""
+_KERNEL_NAMES = ("model_values", "encode", "decode", "encode_fused", "encode_m", "gather_rows",
+                 "splice_payload", "crc32")
+
+
+def launch_counts(device=None) -> dict:
+    """Kernel launches since the last reset, by kernel: on every device,
+    or on ``device`` alone (a CUDA device; no index is card 0)."""
+    if device is not None:
+        index = torch.device(device).index or 0
+        return {k: _build.card_launches.get((k, index), 0) for k in _KERNEL_NAMES}
     return {
         "model_values": _model_op.launches,
         "encode": _encode_op.launches,
@@ -67,3 +78,4 @@ def reset_launch_counts() -> None:
     _staging_op.gather_launches = 0
     _staging_op.splice_launches = 0
     _staging_op.crc_launches = 0
+    _build.card_launches.clear()

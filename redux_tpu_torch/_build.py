@@ -57,6 +57,8 @@ SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+card_launches: dict = {}  # (kernel, device index) -> launches since the last reset
 
 
 def nvcc() -> str:
@@ -179,6 +181,14 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = lib().rxt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def count_launch(kernel: str, device: torch.device) -> None:
+    """One launch of ``kernel`` on ``device`` into :data:`card_launches`
+    (the wrappers call it beside their own count; any thread may)."""
+    key = (kernel, device.index or 0)
+    with _count_lock:
+        card_launches[key] = card_launches.get(key, 0) + 1
 
 
 def stream_of(device: torch.device) -> int:

@@ -17,10 +17,10 @@ reference staged it on the host for its TPU's sake, the port on the card
 with the staging kernels of ``ops.staging`` (S1 row gather, S2 payload
 splice, S3 crc32) and ``torch.bincount`` for the histogram.  ``encode``
 reads the input in lane chunks twice (histogram and crc, then the
-kernels; an input of one chunk crosses the bus once) and fetches each
-chunk's payload straight to its offset in the returned ``bytes``, the
-header written in front of it at the end; the chunks' CRCs stay on the
-device until all are queued.  ``decode`` works a range of blocks at a
+kernels; an input of one chunk a device crosses the bus once) and
+fetches each chunk's payload straight to its offset in the returned
+``bytes``, the header written in front of it at the end; the chunks'
+CRCs stay on the device until all are queued.  ``decode`` works a range of blocks at a
 time: the range's slice of the archive goes up, its output comes back
 into the result's memory while the next range decodes, so its device
 memory is two ranges' worth whatever the input's size.  On the card
@@ -33,10 +33,15 @@ The device defaults to the card: ``device="cuda"`` runs the kernels, and
 with no CUDA device a call raises RuntimeError before any kernel work
 instead of running anything else.  The CPU runs the kernels' plain
 PyTorch versions only when the caller asks for it (``device="cpu"``, as
-the tests do).  A sequence of two or more devices shards the blocks over
-them (``parallel.mesh``; the explicit counterpart of the reference's
-``_dp_mesh`` branches, :98-113, :300-316, :483-510): the data stages on
-the first device and the shards move from device to device.
+the tests do).  A sequence of two or more devices splits the blocks
+over them (the explicit counterpart of the reference's ``_dp_mesh``
+branches, :98-113, :300-316, :483-510, which shard every chunk over
+every device): a call runs in steps (:func:`_shares`), each giving each
+device one contiguous share of at most a lane chunk, and each device
+uploads, codes, splices, checks and fetches its own shares with its own
+slots and streams; no byte goes from device to device, and only the
+histogram's 256 counts, the CRCs and the wire lengths meet on the host.
+A list may name one device twice (two shares a step on one card).
 ``parallel.data_parallel_mesh()`` names every visible GPU.  The archive
 bytes do not depend on the devices.
 
@@ -51,12 +56,13 @@ change ``encode_auto``'s candidates, and so its bytes, silently.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import mmap
 import time
 import warnings
-from concurrent.futures import ThreadPoolExecutor
-from typing import NamedTuple, Optional, Sequence, Union
+from concurrent.futures import ThreadPoolExecutor, wait
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -70,8 +76,6 @@ from .ops.coder import max_block_words
 from .ops.decode import decode_blocks
 from .ops.encode import encode_blocks_ranked
 from .ops.staging import combine_crcs, crc32_device, gather_rows, splice_payload
-from .parallel.mesh import (Mesh, data_parallel_mesh, decode_blocks_sharded,
-                            encode_blocks_ranked_sharded)
 from .params import Parameters
 
 # Default decode lane quantum of the reference (its LANES x PHASES = 1024 x 1):
@@ -178,13 +182,127 @@ def _check_config(params: Parameters, block_size: int, delta: int, init_total: i
 Devices = Union[torch.device, str, Sequence[Union[torch.device, str]]]
 
 
-def _placement(device: Devices) -> tuple[torch.device, Optional[Mesh]]:
-    """Where the data stages and, for two or more devices, the mesh to
-    shard over: the data then stages on the mesh's first device."""
-    if isinstance(device, (torch.device, str)):
-        return torch.device(device), None
-    mesh = data_parallel_mesh(device)
-    return mesh[0], (mesh if len(mesh) > 1 else None)
+def _cards(device: Devices) -> list[torch.device]:
+    """The devices of a call, one share of a step each (:func:`_shares`):
+    ``device`` alone, or each of a sequence, which may name a device more
+    than once.  A CUDA device without an index is card 0, the card the
+    kernels' launchers take for it, so every tensor of the call names its
+    card whatever the current device."""
+    devs = [device] if isinstance(device, (torch.device, str)) else list(device)
+    if not devs:
+        raise ValueError("a device list needs at least one device")
+    devs = [torch.device(d) for d in devs]
+    return [torch.device("cuda", 0) if d.type == "cuda" and d.index is None else d
+            for d in devs]
+
+
+class _Share(NamedTuple):
+    """Blocks ``s0 .. s1`` of a call, on its device ``card`` (an index into
+    the call's devices), that device's share number ``i``."""
+
+    card: int
+    i: int
+    s0: int
+    s1: int
+
+
+def _shares(n_blocks: int, chunk: int, n_cards: int) -> list[list[_Share]]:
+    """The steps of a call over ``n_cards`` devices, in block order: each
+    step gives each device at most one contiguous share of at most
+    ``chunk`` blocks.  A step takes the next ``n_cards * chunk`` blocks, a
+    chunk a device; the blocks left after the last such step are split
+    evenly over the devices (the first ones take a block more where they
+    do not divide), so a device goes without a share only where fewer
+    blocks than devices are left.  One device: the lane chunks of
+    ``chunk`` blocks, the last one the rest."""
+    steps, s0, count = [], 0, [0] * n_cards
+    while s0 < n_blocks:
+        left = n_blocks - s0
+        if left >= n_cards * chunk:
+            sizes = [chunk] * n_cards
+        else:
+            sizes = [left // n_cards + (j < left % n_cards) for j in range(n_cards)]
+        step = []
+        for j, m in enumerate(sizes):
+            if m:
+                step.append(_Share(j, count[j], s0, s0 + m))
+                count[j] += 1
+                s0 += m
+        steps.append(step)
+    return steps
+
+
+def _by_card(steps: list[list[_Share]], n_cards: int) -> list[list[_Share]]:
+    """Each device's shares, in order."""
+    own = [[] for _ in range(n_cards)]
+    for step in steps:
+        for sh in step:
+            own[sh.card].append(sh)
+    return own
+
+
+def _threads(cards: list[torch.device], timings: Optional[dict]) -> bool:
+    """Whether a call issues each device's work from a thread of its own:
+    for two or more CUDA devices (the CPU's plain versions already use
+    every core), and not when ``timings`` are taken (each mark waits for
+    every device).  On the H100s a thread a card took 0.1 s off a 2 GiB
+    encode over 4 cards or two shares on one, and cost 3-40 ms at 64 MiB
+    (``PERF.md`` §6)."""
+    return timings is None and len(cards) > 1 and all(d.type == "cuda" for d in cards)
+
+
+class _Issue:
+    """How a call issues a step's work on its devices.
+
+    :meth:`each` runs each of its functions on each share of a step.  With
+    ``threads`` off (:func:`_threads`), the calling thread runs the first
+    function on every share, then the second on every share, and so on:
+    every device's kernels are queued before any host copy.  Otherwise
+    each share's functions run in order on a thread of a pool of one a
+    device, with the caller's current stream of that share's device, so
+    that the devices' host copies run at once; every task ends before
+    :meth:`each` returns or raises.  Use it as a context manager: the
+    pool's threads end with it.
+    """
+
+    def __init__(self, cards: list[torch.device], threads: bool):
+        self.pool = ThreadPoolExecutor(len(cards), "redux-card") if threads else None
+        self.streams = [torch.cuda.current_stream(d) if d.type == "cuda" else None
+                        for d in cards]
+
+    def each(self, shares: Sequence[_Share], *fns: Callable[[_Share], None]) -> None:
+        if self.pool is None:
+            for fn in fns:
+                for sh in shares:
+                    fn(sh)
+            return
+        tasks = [self.pool.submit(self._run, sh, fns) for sh in shares]
+        wait(tasks)
+        for t in tasks:
+            t.result()
+
+    def _run(self, sh: _Share, fns) -> None:
+        stream = self.streams[sh.card]
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            for fn in fns:
+                fn(sh)
+
+    def __enter__(self) -> "_Issue":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.pool is not None:
+            self.pool.shutdown(wait=True)
+
+
+def _crc_of(steps: list[list[_Share]], crcs: dict, n: int, k: int) -> int:
+    """The CRC-32 of a call's ``n`` bytes from each share's CRC, ``crcs[j][i]``
+    on device ``j`` for its share ``i`` (one fetch a device), combined in
+    block order."""
+    got = {j: c.cpu().to(torch.int64) & 0xFFFFFFFF for j, c in crcs.items()}
+    order = [sh for step in steps for sh in step]
+    return combine_crcs(torch.tensor([int(got[sh.card][sh.i]) for sh in order], dtype=torch.int64),
+                        torch.tensor([n - min(sh.s1 * k, n) for sh in order], dtype=torch.int64))
 
 
 def _require_cuda(device: torch.device) -> None:
@@ -203,7 +321,8 @@ class _Clock:
 
     def __init__(self, timings: Optional[dict], devices: Sequence[torch.device] = ()):
         self.tt = timings if timings is not None else {}
-        self.wait = [d for d in devices if d.type == "cuda"] if timings is not None else []
+        self.wait = list(dict.fromkeys(d for d in devices if d.type == "cuda")) if (
+            timings is not None) else []
         self.t0 = time.perf_counter()
 
     def mark(self, name: str, part: Optional[str] = None) -> None:
@@ -481,21 +600,24 @@ def encode(
     4 KiB blocks, auto-sized for inputs >= 2 MiB (see
     :func:`_auto_block_size`).  ``device`` (default ``"cuda"``) runs the
     kernels; ``device="cpu"`` runs their plain versions; a sequence of
-    devices shards the blocks over them.
+    devices splits the blocks over them (:func:`_shares`).
 
-    The input goes up a lane chunk at a time (:class:`_Upload`), twice
-    past one chunk; each chunk's payload comes back (:class:`_Fetch`)
-    straight to its offset in the returned ``bytes``, and the header is
-    written in front of it once the last payload is there
-    (:func:`container.write_header`).  Each range's pages are prefaulted
-    once its length is known (:meth:`_Output.prefault`).
+    The input goes up a share (one lane chunk on one device) at a time,
+    to the share's device (:class:`_Upload`, one a device), twice where a
+    device has more than one share; each share's payload comes back from
+    its device (:class:`_Fetch`, one a device) straight to its offset in
+    the returned ``bytes``, and the header is written in front of it once
+    the last payload is there (:func:`container.write_header`).  Each
+    range's pages are prefaulted once its length is known
+    (:meth:`_Output.prefault`).
 
     ``_timings`` receives the wall time of each phase: ``pass1`` (each
-    chunk's upload, histogram and crc), ``pass2`` (each chunk's upload,
-    K1 -> K2, the payload splice and its fetch) and ``header``.
+    share's upload, histogram and crc), ``pass2`` (each share's upload,
+    K1 -> K2, the payload splice and its fetch) and ``header``.  With
+    ``_timings`` every device's work issues from the calling thread.
     """
-    device, mesh = _placement(device)
-    clock = _Clock(_timings, mesh or [device])
+    cards = _cards(device)
+    clock = _Clock(_timings, cards)
     params = params or Parameters.tpu_wide()
     if block_size is None:
         block_size = _default_block_size(len(data), lane_quantum)
@@ -506,86 +628,110 @@ def encode(
     # The parameters' own limits before the device's (the prior's total is
     # checked once pass 1 has counted the bytes).
     _check_config(params, block_size, delta, int(uniform_init_cum(params)[-1]))
-    _require_cuda(device)
+    for d in cards:
+        _require_cuda(d)
     n, k = len(data), block_size
     lens = _block_lens(n, k)
     n_blocks = lens.size
-    chunk = _lane_chunk(ENC_CHUNK_BYTES, k)
-    spans = [(s0, min(s0 + chunk, n_blocks)) for s0 in range(0, n_blocks, chunk)]
-    # Each chunk's bytes, zero past the input to its blocks' end; pass 2
-    # reads them again past one chunk.
-    ranges = [(s0 * k, min(s1 * k, n), (s1 - s0) * k) for s0, s1 in spans]
-    up = _Upload(data, ranges + (ranges if len(spans) > 1 else []), device)
+    steps = _shares(n_blocks, _lane_chunk(ENC_CHUNK_BYTES, k), len(cards))
+    own = _by_card(steps, len(cards))
+    busy = [j for j, mine in enumerate(own) if mine]
 
-    # Pass 1, a lane chunk at a time: the histogram and the chunk's crc on
-    # the device, fetched once after the last chunk.  An input of one
-    # chunk keeps its blocks for pass 2.
-    hist = torch.zeros(256, dtype=torch.int64, device=device)
-    crcs = torch.zeros(len(spans), dtype=torch.int32, device=device)
-    after, kept = [], None
-    for i, (a, b, _) in enumerate(ranges):
-        slot = up.take()
+    def span(sh: _Share) -> tuple[int, int, int]:
+        """The share's bytes, zero past the input to its blocks' end."""
+        return sh.s0 * k, min(sh.s1 * k, n), (sh.s1 - sh.s0) * k
+
+    # Each device reads its shares twice (pass 2 again) where it has more
+    # than one, else once: it keeps its one share's blocks for pass 2.
+    ups = {j: _Upload(data, [span(sh) for sh in own[j]] * (1 if len(own[j]) == 1 else 2),
+                      cards[j]) for j in busy}
+    hists = {j: torch.zeros(256, dtype=torch.int64, device=cards[j]) for j in busy}
+    crcs = {j: torch.zeros(len(own[j]), dtype=torch.int32, device=cards[j]) for j in busy}
+    kept = {}
+
+    # Pass 1, a step at a time: each share's histogram and crc on its
+    # device, fetched once after the last step.
+    def count(sh: _Share) -> None:
+        slot = ups[sh.card].take()
+        a, b, _ = span(sh)
         if use_prior:
-            hist += _byte_histogram(slot[: b - a])
-        crc32_device(slot[: b - a], crcs[i : i + 1])
-        up.prefetch()
-        after.append(n - b)
-        if len(spans) == 1:
-            kept = slot
-    crc = combine_crcs(crcs.cpu().to(torch.int64) & 0xFFFFFFFF, torch.tensor(after))
-    prior_extra = _prior_extra(hist.cpu().numpy(), params, prior_budget) if use_prior else None
-    ic = _init_cum(params, prior_extra)
-    _check_config(params, block_size, delta, int(ic[-1]))
-    clock.mark("pass1")
+            hists[sh.card] += _byte_histogram(slot[: b - a])
+        crc32_device(slot[: b - a], crcs[sh.card][sh.i : sh.i + 1])
+        if len(own[sh.card]) == 1:
+            kept[sh.card] = slot
 
-    if n == 0:
-        return container.build_archive(params, block_size, 0, [], prior_extra, delta, crc)
+    def load_next(sh: _Share) -> None:
+        ups[sh.card].prefetch()
 
-    # Pass 2, a lane chunk at a time: K1 -> K2 on the chunk's blocks, the
-    # raw rule, the payload spliced on the device and fetched to its place
-    # after the header, which the wire lengths and raw flags then fill.
-    # A block is stored raw unless its stream is shorter, so the payload
-    # takes at most n bytes.
-    n_words = _encode_words(params, k, delta)
-    ic_t = _to_device(init_cum_from_numpy(ic, params, "cpu"), device)
-    head_len = container.header_bytes(n_blocks, prior_extra is not None)
-    wire_all = np.empty(n_blocks, dtype=np.int32)
-    raw_all = np.empty(n_blocks, dtype=bool)
-    with _Output(head_len + n) as out:
-        out.prefault(0, head_len)
-        fetch = _Fetch(out, device, ranges[0][2], min(2, len(spans)))
-        off = head_len
-        for i, (s0, s1) in enumerate(spans):
-            blocks = (kept if kept is not None else up.take()).view(s1 - s0, k)
-            lens_t = _to_device(lens[s0:s1], device)
-            if mesh is None:
-                words, bl, ov = encode_blocks_ranked(blocks, lens_t, ic_t, params, n_words, delta)
-            else:
-                words, bl, ov = encode_blocks_ranked_sharded(
-                    blocks, lens_t, ic_t, params, n_words, mesh, delta)
-            up.prefetch()  # the next chunk's host copy while K1 -> K2 run
-            fetch.drain()  # the previous chunk's payload into place, likewise
+    with _Issue(cards, _threads(cards, _timings)) as issue:
+        for step in steps:
+            issue.each(step, count, load_next)
+        crc = _crc_of(steps, crcs, n, k)
+        hist = sum((h.cpu() for h in hists.values()), torch.zeros(256, dtype=torch.int64))
+        prior_extra = _prior_extra(hist.numpy(), params, prior_budget) if use_prior else None
+        ic = _init_cum(params, prior_extra)
+        _check_config(params, block_size, delta, int(ic[-1]))
+        clock.mark("pass1")
+
+        if n == 0:
+            return container.build_archive(params, block_size, 0, [], prior_extra, delta, crc)
+
+        # Pass 2, a step at a time: K1 -> K2 on each share's blocks and the
+        # raw rule, queued on every device of the step before any wire
+        # length is read; then, share by share in block order, the payload
+        # spliced on its device and fetched from there to its place after
+        # the header, which the wire lengths and raw flags then fill.  A
+        # block is stored raw unless its stream is shorter, so the payload
+        # takes at most n bytes.
+        n_words = _encode_words(params, k, delta)
+        ic_np = init_cum_from_numpy(ic, params, "cpu")
+        ic_t = {j: _to_device(ic_np, cards[j]) for j in busy}
+        head_len = container.header_bytes(n_blocks, prior_extra is not None)
+        wire_all = np.empty(n_blocks, dtype=np.int32)
+        raw_all = np.empty(n_blocks, dtype=bool)
+        coded = {}  # device -> its share's blocks, K2's words and (wire, raw) rows
+
+        def code(sh: _Share) -> None:
+            j = sh.card
+            blocks = (kept[j] if j in kept else ups[j].take()).view(sh.s1 - sh.s0, k)
+            lens_t = _to_device(lens[sh.s0 : sh.s1], cards[j])
+            words, bl, ov = encode_blocks_ranked(blocks, lens_t, ic_t[j], params, n_words, delta)
             # Stored raw: overflowed blocks and any block not smaller coded.
-            # The wire lengths and flags come to the host for the header; S2
-            # lays the payload out by them.
             raw = ov | (bl >= lens_t)
-            head = torch.stack([torch.where(raw, lens_t, bl), raw.to(torch.int32)]).cpu()
-            wire, raw_h = head[0], head[1].bool()
-            out.prefault(off, off + int(wire.numpy().sum(dtype=np.int64)))
-            payload = splice_payload(words, blocks, raw_h, wire)
-            fetch.put(i, payload, off)
-            off += payload.shape[0]
-            wire_all[s0:s1], raw_all[s0:s1] = wire.numpy(), raw_h.numpy()
-            del blocks, words, payload
-        fetch.drain()
-        clock.mark("pass2")
-        out.ready(0, head_len)
-        container.write_header(out.view.numpy(), params, block_size, n, prior_extra, delta, crc,
-                               raw_all, wire_all)
-        del fetch
-        archive = out.result(off)
-        clock.mark("header")
-        return archive
+            coded[j] = (blocks, words,
+                        torch.stack([torch.where(raw, lens_t, bl), raw.to(torch.int32)]))
+
+        def overlap(sh: _Share) -> None:
+            ups[sh.card].prefetch()  # the next share's host copy while K1 -> K2 run
+            fetches[sh.card].drain()  # the previous share's payload into place, likewise
+
+        with _Output(head_len + n) as out:
+            out.prefault(0, head_len)
+            fetches = {j: _Fetch(out, cards[j], max((sh.s1 - sh.s0) * k for sh in own[j]),
+                                 min(2, len(own[j]))) for j in busy}
+            off = head_len
+            for step in steps:
+                issue.each(step, code, overlap)
+                for sh in step:  # the wire lengths and flags to the host, S2 by them
+                    blocks, words, head = coded.pop(sh.card)
+                    head = head.cpu()
+                    wire, raw_h = head[0], head[1].bool()
+                    size = int(wire.numpy().sum(dtype=np.int64))
+                    out.prefault(off, off + size)
+                    payload = splice_payload(words, blocks, raw_h, wire)
+                    fetches[sh.card].put(sh.i, payload, off)
+                    off += size
+                    wire_all[sh.s0 : sh.s1], raw_all[sh.s0 : sh.s1] = wire.numpy(), raw_h.numpy()
+                    del blocks, words, payload
+            issue.each([own[j][-1] for j in busy], lambda sh: fetches[sh.card].drain())
+            clock.mark("pass2")
+            out.ready(0, head_len)
+            container.write_header(out.view.numpy(), params, block_size, n, prior_extra, delta,
+                                   crc, raw_all, wire_all)
+            del fetches
+            archive = out.result(off)
+            clock.mark("header")
+            return archive
 
 
 class _Lanes(NamedTuple):
@@ -639,21 +785,15 @@ def _stage_lanes(arch: torch.Tensor, header, lanes: _Lanes, sel: np.ndarray, bas
     return words, _to_device(klens, dev)
 
 
-def _chunk_slices(header, lanes: _Lanes, chunk: int) -> list:
-    """``(s0, s1, a, b)`` of each of ``decode``'s chunks: blocks ``s0 ..
-    s1`` of ``chunk`` and the bytes ``archive[a:b]`` that hold them (the
-    payload is in block order)."""
-    n = header.n_blocks
-    ends = header.stream_offs + np.where(lanes.raw, lanes.block_lens, lanes.coded_lens)
-    out = []
-    for s0 in range(0, n, chunk):
-        s1 = min(s0 + chunk, n)
-        out.append((s0, s1, int(header.stream_offs[s0]), int(ends[s1 - 1])))
-    return out
+def _stream_ends(header, lanes: _Lanes) -> np.ndarray:
+    """(B,) int64 end of each block's bytes in the archive: its offset and
+    its wire length (the payload is in block order, so blocks ``s0 .. s1``
+    lie in ``archive[stream_offs[s0] : ends[s1 - 1]]``)."""
+    return header.stream_offs + np.where(lanes.raw, lanes.block_lens, lanes.coded_lens)
 
 
 def _decode_chunk(arch: torch.Tensor, base: int, header, lanes: _Lanes, s0: int,
-                  out: torch.Tensor, ic_t: torch.Tensor, mesh: Optional[Mesh]) -> None:
+                  out: torch.Tensor, ic_t: torch.Tensor) -> None:
     """Blocks ``s0 .. s0 + len(out)`` into the rows of ``out`` (``(rows,
     k)`` uint8 on ``arch``'s device) from their slice ``arch`` of the
     archive, which starts at archive offset ``base``: a raw block's row is
@@ -672,10 +812,7 @@ def _decode_chunk(arch: torch.Tensor, base: int, header, lanes: _Lanes, s0: int,
         ci = ci[_by_length(lanes.coded_lens[s0 + ci])]
         words, klens = _stage_lanes(arch, header, lanes, s0 + ci, base)
         k, p, d = header.block_size, header.params, header.delta
-        if mesh is None:
-            syms = decode_blocks(words, klens, ic_t, p, k, d)
-        else:
-            syms = decode_blocks_sharded(words, klens, ic_t, p, k, mesh, d)
+        syms = decode_blocks(words, klens, ic_t, p, k, d)
         del words
         out.index_copy_(0, _to_device(ci, dev), syms)
     if ri.size:
@@ -689,80 +826,94 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     Verifies the stored crc32 and raises :class:`InvalidInputError` on any
     corruption instead of returning garbage.  ``device`` (default
     ``"cuda"``) runs the kernel; ``device="cpu"`` runs its plain version; a
-    sequence of devices shards each chunk's blocks over them.
+    sequence of devices splits the blocks over them (:func:`_shares`).
 
-    A chunk is a range of ``_lane_chunk(DEC_CHUNK_BYTES, k)`` blocks.  Each
-    has its own upload (its slice of the archive, :class:`_Upload`: on the
-    card the next range's slice goes up while K3 runs), S1 and K3 into its
-    own output rows (:func:`_decode_chunk`), S3, and fetch
-    (:class:`_Fetch`: on the card the output comes back on a side stream
-    while the next chunk runs); the chunks' CRCs stay on the device until
-    the last chunk, then come back together to be combined and checked.
-    The device holds at most two chunks' slices and outputs and one
-    chunk's words and symbols, whatever the input's size.
+    A share is a range of at most ``_lane_chunk(DEC_CHUNK_BYTES, k)``
+    blocks on one device.  Each has its own upload (its slice of the
+    archive, to its device: :class:`_Upload`, one a device, the next
+    share's slice going up while K3 runs), S1 and K3 into its own output
+    rows (:func:`_decode_chunk`), S3, and fetch (:class:`_Fetch`, one a
+    device: the output comes back on a side stream while the next share
+    runs); the CRCs stay on their devices until the last step, then come
+    back to be combined in block order and checked once.  A device holds
+    at most two shares' slices and outputs and one share's words and
+    symbols, whatever the input's size.
 
     The header's block table is read by numpy (:func:`container.parse_table`):
     no Python object a block.  The result's pages are faulted in on worker
-    threads while the card decodes (:meth:`_Output.prefault`), so the
-    fetch's copies write pages that are there.
+    threads while the devices decode (:meth:`_Output.prefault`), so the
+    fetches' copies write pages that are there.
 
     ``_timings`` receives the wall time of each phase, summed over the
-    chunks: ``parse`` (the header and the lanes), ``upload`` (a chunk's
+    shares: ``parse`` (the header and the lanes), ``upload`` (a share's
     slice), ``kernels`` (S1 -> K3 into the rows, the raw rows) and
     ``crc+fetch`` (S3, the copy to the host and into the result), which
     splits into ``crc+fetch s3`` (S3, and the CRCs' combine and check),
     ``crc+fetch d2h`` (the copy to a pinned slot, and its wait) and
     ``crc+fetch copy`` (the slot into the result, with any wait for its
-    prefault).  Each mark waits for the card, which serializes the fetch
-    that otherwise overlaps the next chunk: read the wall clock from a
-    call without ``_timings``.
+    prefault).  Each mark waits for the devices, which serializes the
+    fetch that otherwise overlaps the next share, and every device's work
+    issues from the calling thread: read the wall clock from a call
+    without ``_timings``.
     """
-    device, mesh = _placement(device)
-    clock = _Clock(_timings, mesh or [device])
+    cards = _cards(device)
+    clock = _Clock(_timings, cards)
     header = container.parse_table(archive)
     params = header.params
-    _require_cuda(device)
+    for d in cards:
+        _require_cuda(d)
     if header.orig_len == 0:
         container.verify_crc(header, b"")
         return b""
     n, k, n_blocks = header.orig_len, header.block_size, header.n_blocks
     lanes = _decode_lanes(header)
-    ic_t = _to_device(init_cum_from_numpy(_init_cum(params, header.prior_extra), params, "cpu"),
-                      device)
-    chunk = _lane_chunk(DEC_CHUNK_BYTES, k)
-    slices = _chunk_slices(header, lanes, chunk)
-    up = _Upload(archive, [(a, b, b - a) for _, _, a, b in slices], device)
-    rows = min(chunk, n_blocks)
-    outs = torch.empty(min(2, len(slices)), rows, k, dtype=torch.uint8, device=device)
-    crcs = torch.zeros(len(slices), dtype=torch.int32, device=device)
-    after = []
-    with _Output(n) as output:
-        for s0, s1, _, _ in slices:  # every byte of the result is written, a range at a time
-            output.prefault(s0 * k, min(s1 * k, n))
-        fetch = _Fetch(output, device, rows * k, outs.shape[0])
-        clock.mark("parse")
-        for i, (s0, s1, base, _) in enumerate(slices):
-            arch = up.take()
-            clock.mark("upload")
-            out = outs[i % outs.shape[0], : s1 - s0]
-            _decode_chunk(arch, base, header, lanes, s0, out, ic_t, mesh)
-            del arch
-            clock.mark("kernels")
-            up.prefetch()  # the next range's host copy while K3 runs
-            clock.mark("upload")
-            fetch.drain()  # the previous range into the result, likewise
-            clock.mark("crc+fetch", "copy")
-            flat = out.view(-1)[: min(s1 * k, n) - s0 * k]
-            crc32_device(flat, crcs[i : i + 1])
-            after.append(n - s0 * k - flat.shape[0])
-            clock.mark("crc+fetch", "s3")
-            fetch.put(i, flat, s0 * k)
-            clock.mark("crc+fetch", "d2h")
-        fetch.drain()
-        del fetch
+    ic = init_cum_from_numpy(_init_cum(params, header.prior_extra), params, "cpu")
+    steps = _shares(n_blocks, _lane_chunk(DEC_CHUNK_BYTES, k), len(cards))
+    own = _by_card(steps, len(cards))
+    busy = [j for j, mine in enumerate(own) if mine]
+    ends = _stream_ends(header, lanes)
+    base = {sh: int(header.stream_offs[sh.s0]) for step in steps for sh in step}
+    ups = {j: _Upload(archive, [(base[sh], int(ends[sh.s1 - 1]), int(ends[sh.s1 - 1]) - base[sh])
+                                for sh in own[j]], cards[j]) for j in busy}
+    rows = {j: max(sh.s1 - sh.s0 for sh in own[j]) for j in busy}
+    outs = {j: torch.empty(min(2, len(own[j])), rows[j], k, dtype=torch.uint8, device=cards[j])
+            for j in busy}
+    crcs = {j: torch.zeros(len(own[j]), dtype=torch.int32, device=cards[j]) for j in busy}
+    ic_t = {j: _to_device(ic, cards[j]) for j in busy}
+
+    def rows_of(sh: _Share) -> torch.Tensor:
+        return outs[sh.card][sh.i % outs[sh.card].shape[0], : sh.s1 - sh.s0]
+
+    def decode_share(sh: _Share) -> None:
+        arch = ups[sh.card].take()
+        clock.mark("upload")
+        _decode_chunk(arch, base[sh], header, lanes, sh.s0, rows_of(sh), ic_t[sh.card])
+        clock.mark("kernels")
+
+    def fetch_share(sh: _Share) -> None:
+        j = sh.card
+        ups[j].prefetch()  # the next share's host copy while K3 runs
+        clock.mark("upload")
+        fetches[j].drain()  # the previous share into the result, likewise
         clock.mark("crc+fetch", "copy")
-        crc = combine_crcs(crcs.cpu().to(torch.int64) & 0xFFFFFFFF, torch.tensor(after))
-        if crc != header.crc32:
+        flat = rows_of(sh).view(-1)[: min(sh.s1 * k, n) - sh.s0 * k]
+        crc32_device(flat, crcs[j][sh.i : sh.i + 1])
+        clock.mark("crc+fetch", "s3")
+        fetches[j].put(sh.i, flat, sh.s0 * k)
+        clock.mark("crc+fetch", "d2h")
+
+    with _Output(n) as output, _Issue(cards, _threads(cards, _timings)) as issue:
+        for step in steps:  # every byte of the result is written, a share at a time
+            for sh in step:
+                output.prefault(sh.s0 * k, min(sh.s1 * k, n))
+        fetches = {j: _Fetch(output, cards[j], rows[j] * k, outs[j].shape[0]) for j in busy}
+        clock.mark("parse")
+        for step in steps:
+            issue.each(step, decode_share, fetch_share)
+        issue.each([own[j][-1] for j in busy], lambda sh: fetches[sh.card].drain())
+        del fetches
+        clock.mark("crc+fetch", "copy")
+        if _crc_of(steps, crcs, n, k) != header.crc32:
             raise InvalidInputError()
         clock.mark("crc+fetch", "s3")
         return output.result(n)

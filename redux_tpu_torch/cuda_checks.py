@@ -431,20 +431,25 @@ def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
     return out
 
 
-def decode_memory_bound(header: container.BlockTable) -> int:
-    """Bytes of device memory ``api.decode`` may hold at once for the
-    archive of ``header`` (:func:`container.parse_table`), reckoned from
-    one chunk's shapes: two chunk
-    slots, each the largest chunk's slice of the archive (two are held:
-    the next range's goes up while one decodes), its staged words
+def decode_memory_bound(header: container.BlockTable, shares=None) -> int:
+    """Bytes of device memory ``api.decode`` may hold at once on one
+    device for the archive of ``header`` (:func:`container.parse_table`)
+    and that device's ``shares`` (``api._Share``s; default: one device's,
+    every lane chunk), reckoned from its widest share's shapes: two
+    slots, each the largest share's slice of the archive (two are held:
+    the next share's goes up while one decodes), its staged words
     (``rows x (n_words + 2)`` int32, the widest K3's input can be), K3's
-    symbols and the chunk's output (``rows x k`` bytes each).  None of it
+    symbols and the share's output (``rows x k`` bytes each).  None of it
     grows with the input past one chunk."""
     k = header.block_size
-    rows = min(api._lane_chunk(api.DEC_CHUNK_BYTES, k), header.n_blocks)
-    slices = api._chunk_slices(header, api._decode_lanes(header), rows)
+    if shares is None:
+        shares = api._shares(header.n_blocks, api._lane_chunk(api.DEC_CHUNK_BYTES, k), 1)
+        shares = [sh for step in shares for sh in step]
+    ends = api._stream_ends(header, api._decode_lanes(header))
+    rows = max(sh.s1 - sh.s0 for sh in shares)
+    piece = max(int(ends[sh.s1 - 1]) - int(header.stream_offs[sh.s0]) for sh in shares)
     n_words = api._static_words(header.params, k, header.delta)
-    return 2 * (max(b - a for _, _, a, b in slices) + 4 * rows * (n_words + 2) + 2 * rows * k)
+    return 2 * (piece + 4 * rows * (n_words + 2) + 2 * rows * k)
 
 
 def encode_memory_bound(n_bytes: int, block_size: int, params: Parameters,

@@ -120,4 +120,5 @@ def decode_blocks(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tenso
     )
     _build.check(err, "rxt_decode_blocks")
     launches += 1
+    _build.count_launch("decode", dev)
     return out

@@ -92,6 +92,7 @@ def encode_blocks(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, init_t
     )
     _build.check(err, "rxt_encode_blocks")
     launches += 1
+    _build.count_launch("encode", dev)
     return words, byte_lens, ovf
 
 
@@ -133,6 +134,7 @@ def encode_blocks_fused(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.
     )
     _build.check(err, "rxt_encode_fused")
     fused_launches += 1
+    _build.count_launch("encode_fused", dev)
     return words, byte_lens, ovf
 
 

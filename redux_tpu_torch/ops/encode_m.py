@@ -84,4 +84,5 @@ def encode_blocks_m(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tens
     )
     _build.check(err, "rxt_encode_m")
     launches += 1
+    _build.count_launch("encode_m", dev)
     return words, byte_lens, ovf

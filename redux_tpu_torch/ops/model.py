@@ -72,6 +72,7 @@ def model_lohi(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
     )
     _build.check(err, "rxt_model_lohi")
     launches += 1
+    _build.count_launch("model_values", dev)
     return lo, hi
 
 

@@ -108,6 +108,7 @@ def gather_rows(buf: torch.Tensor, offs, lens, width: int, words: bool = False) 
         table = table.to(dev, non_blocking=True)
         launch_gather_rows(buf, table[0], table[1], out, words)
         gather_launches += 1
+        _build.count_launch("gather_rows", dev)
     return out
 
 
@@ -201,6 +202,7 @@ def splice_payload(words: torch.Tensor, blocks: torch.Tensor, raw: torch.Tensor,
     if out.shape[0]:
         launch_splice_payload(_aligned(words), _aligned(blocks), *splice_rows(raw, wire, dev), out)
         splice_launches += 1
+        _build.count_launch("splice_payload", dev)
     return out
 
 
@@ -394,6 +396,7 @@ def crc32_device(u8: torch.Tensor, out: torch.Tensor | None = None) -> torch.Ten
         return out.zero_()
     launch_crc32(u8, out)
     crc_launches += 1
+    _build.count_launch("crc32", dev)
     return out
 
 

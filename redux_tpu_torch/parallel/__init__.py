@@ -1,7 +1,8 @@
-"""Data parallelism over GPUs and hosts: the blocks split across devices,
-one launch a device, no collectives until the gather (counterpart:
-``redux_tpu/parallel``; the multi-host worker is
-``python -m redux_tpu_torch.parallel.multihost``)."""
+"""Data parallelism over GPUs and hosts: the sharded kernel entries (the
+blocks split across devices, one launch a device, no collectives until
+the gather) and the multi-host worker ``python -m
+redux_tpu_torch.parallel.multihost`` (counterpart: ``redux_tpu/parallel``).
+``api.encode`` / ``decode`` take a device list themselves."""
 
 from .mesh import (
     data_parallel_mesh,

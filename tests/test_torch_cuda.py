@@ -783,3 +783,94 @@ def test_results_are_prefaulted_on_the_card(cuda_device, monkeypatch):
         touched.clear()
         if length == len(arch):
             assert api.decode(arch, device=cuda_device) == data
+
+
+def _device_list(which: str, dev: torch.device) -> list:
+    """``[dev, dev]`` (two shares a step on one card) or every card; skips
+    the latter on a machine of one card."""
+    if which == "dev_dev":
+        return [dev, dev]
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["dev_dev", "every_card"])
+def test_device_lists_on_the_card(cuda_device, monkeypatch, which):
+    """700 blocks of 1024 with the chunks cut to 128 blocks (several steps,
+    a share of raw blocks only, a short last block) over a device list:
+    the archive is one card's and the CPU path's, decode gives the input
+    back, no plain version runs, and each card launches each kernel as
+    often as the share plan gives it; a flipped byte in every share's
+    slice raises."""
+    import redux_tpu_torch
+    from redux_tpu_torch import api, container, testdata
+    from redux_tpu_torch.errors import InvalidInputError
+    from redux_tpu_torch.ops import decode, encode, model, staging
+
+    k = 1024
+    devices = _device_list(which, cuda_device)
+    data = bytearray(testdata.text_like(700 * k - 77, 23))
+    for i in [*range(128, 256), *np.random.default_rng(23).choice(700, 30, replace=False)]:
+        data[i * k : (i + 1) * k] = testdata.incompressible(k, int(i))
+    data = bytes(data[: 700 * k - 77])
+    monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * k)
+    monkeypatch.setattr(api, "DEC_CHUNK_BYTES", 128 * k)
+    want = api.encode(data, block_size=k, device="cpu")
+    assert api.encode(data, block_size=k, device=cuda_device) == want
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+
+    for mod, name in ((model, "model_lohi_plain"), (encode, "encode_blocks_plain"),
+                      (decode, "decode_blocks_plain"), (staging, "gather_rows_plain"),
+                      (staging, "splice_payload_plain"), (staging, "crc32_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    cards = api._cards(devices)
+    redux_tpu_torch.reset_launch_counts()
+    arch = api.encode(data, block_size=k, device=devices)
+    assert arch == want
+    assert api.decode(arch, device=devices) == data
+    header = container.parse_table(arch)
+    steps = api._shares(header.n_blocks, 128, len(cards))
+    want_counts = {d: dict.fromkeys(redux_tpu_torch.launch_counts(), 0) for d in cards}
+    for sh in (sh for step in steps for sh in step):
+        w, raw = want_counts[cards[sh.card]], header.raw[sh.s0 : sh.s1]
+        coded = int((~raw).any())
+        for name in ("model_values", "encode", "splice_payload"):
+            w[name] += 1
+        w["decode"] += coded
+        w["gather_rows"] += coded + int(raw.any())
+        w["crc32"] += 2
+    assert {d: redux_tpu_torch.launch_counts(d) for d in cards} == want_counts
+    assert any(header.raw[sh.s0 : sh.s1].all() for step in steps for sh in step)
+    ends = api._stream_ends(header, api._decode_lanes(header))
+    for sh in (sh for step in steps for sh in step):
+        bad = bytearray(arch)
+        bad[(int(header.stream_offs[sh.s0]) + int(ends[sh.s1 - 1])) // 2] ^= 0x20
+        with pytest.raises(InvalidInputError):
+            api.decode(bytes(bad), device=devices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["dev_dev", "every_card"])
+def test_device_lists_at_one_step_and_timed(cuda_device, which):
+    """4 MiB over a device list in one step (each card keeps its share's
+    blocks for pass 2): one card's archive and a byte-equal round trip,
+    with and without ``_timings`` (which issue from the calling thread);
+    the call leaves no thread behind."""
+    import threading
+
+    from redux_tpu_torch import api, testdata
+
+    devices = _device_list(which, cuda_device)
+    data = testdata.mixed(4 << 20, 29)
+    want = api.encode(data, device=cuda_device)
+    t_enc, t_dec = {}, {}
+    assert api.encode(data, device=devices) == want
+    assert api.encode(data, device=devices, _timings=t_enc) == want
+    assert api.decode(want, device=devices) == data
+    assert api.decode(want, device=devices, _timings=t_dec) == data
+    assert {"pass1", "pass2", "header"} <= set(t_enc) and "kernels" in t_dec
+    assert not [t for t in threading.enumerate() if t.name.startswith("redux-card")]

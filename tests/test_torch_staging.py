@@ -643,10 +643,12 @@ def test_a_corrupted_payload_fails_the_crc():
 
 
 def test_device_lists_stage_on_their_first_device():
-    """A list of devices stages on its first; a list of CPU devices stays
-    on the CPU and gives the one-device archive."""
-    assert api._placement(["cpu", "cpu"]) == (torch.device("cpu"), [torch.device("cpu")] * 2)
-    assert api._placement(["cpu"]) == (torch.device("cpu"), None)
+    """A list of devices is each of its devices in order (each takes its
+    own shares; a CUDA device without an index is card 0); a list of CPU
+    devices stays on the CPU and gives the one-device archive."""
+    assert api._cards(["cpu", "cpu"]) == [torch.device("cpu")] * 2
+    assert api._cards(["cpu"]) == api._cards("cpu") == [torch.device("cpu")]
+    assert api._cards(["cuda", "cuda:1"]) == [torch.device("cuda", 0), torch.device("cuda", 1)]
     data = testdata.mixed(30_000, 2)
     arch = api.encode(data, block_size=1024, device=["cpu", "cpu", "cpu"])
     assert arch == api.encode(data, block_size=1024, device="cpu")
