@@ -905,7 +905,6 @@ def main() -> int:
 
     mesh_all = data_parallel_mesh()
     for label, devices in ((f"dp[{len(mesh_all)} gpu]", mesh_all), ("dp[dev,dev]", [dev, dev])):
-        _route(label, data, arch, devices, main_on)
         _dp_route(label, data, arch, devices, one_card_bound=True)
     redux_tpu_torch.reset_launch_counts()
     t0 = time.perf_counter()

@@ -33,11 +33,6 @@ from . import _build
 from .api import decode, encode
 from .errors import EofError, InvalidInputError, ReduxError, ReduxIOError
 from .oracle import compress, compress_bytes, decompress, decompress_bytes
-from .ops import decode as _decode_op
-from .ops import encode as _encode_op
-from .ops import encode_m as _encode_m_op
-from .ops import model as _model_op
-from .ops import staging as _staging_op
 from .params import Parameters
 
 __all__ = [
@@ -52,30 +47,12 @@ _KERNEL_NAMES = ("model_values", "encode", "decode", "encode_fused", "encode_m",
 
 
 def launch_counts(device=None) -> dict:
-    """Kernel launches since the last reset, by kernel: on every device,
-    or on ``device`` alone (a CUDA device; no index is card 0)."""
-    if device is not None:
-        index = torch.device(device).index or 0
-        return {k: _build.card_launches.get((k, index), 0) for k in _KERNEL_NAMES}
-    return {
-        "model_values": _model_op.launches,
-        "encode": _encode_op.launches,
-        "decode": _decode_op.launches,
-        "encode_fused": _encode_op.fused_launches,
-        "encode_m": _encode_m_op.launches,
-        "gather_rows": _staging_op.gather_launches,
-        "splice_payload": _staging_op.splice_launches,
-        "crc32": _staging_op.crc_launches,
-    }
+    """Kernel launches since the last reset, by kernel: summed over every
+    device, or on ``device`` alone (a CUDA device; no index is card 0)."""
+    index = None if device is None else torch.device(device).index or 0
+    return {k: sum(c for (name, i), c in _build.card_launches.items()
+                   if name == k and index in (None, i)) for k in _KERNEL_NAMES}
 
 
 def reset_launch_counts() -> None:
-    _model_op.launches = 0
-    _encode_op.launches = 0
-    _decode_op.launches = 0
-    _encode_op.fused_launches = 0
-    _encode_m_op.launches = 0
-    _staging_op.gather_launches = 0
-    _staging_op.splice_launches = 0
-    _staging_op.crc_launches = 0
     _build.card_launches.clear()

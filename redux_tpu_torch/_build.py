@@ -13,6 +13,7 @@ falls back.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -57,8 +58,7 @@ SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
-_count_lock = threading.Lock()
-card_launches: dict = {}  # (kernel, device index) -> launches since the last reset
+card_launches: collections.Counter = collections.Counter()  # (kernel, device index) -> launches
 
 
 def nvcc() -> str:
@@ -184,11 +184,10 @@ def check(err: int, name: str) -> None:
 
 
 def count_launch(kernel: str, device: torch.device) -> None:
-    """One launch of ``kernel`` on ``device`` into :data:`card_launches`
-    (the wrappers call it beside their own count; any thread may)."""
-    key = (kernel, device.index or 0)
-    with _count_lock:
-        card_launches[key] = card_launches.get(key, 0) + 1
+    """One launch of ``kernel`` on ``device`` into :data:`card_launches`,
+    which ``redux_tpu_torch.launch_counts`` reads: each wrapper calls it
+    where it launches its kernel, and nowhere else."""
+    card_launches[kernel, device.index or 0] += 1
 
 
 def stream_of(device: torch.device) -> int:

@@ -56,12 +56,11 @@ change ``encode_auto``'s candidates, and so its bytes, silently.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import mmap
 import time
 import warnings
-from concurrent.futures import ThreadPoolExecutor, wait
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -241,58 +240,13 @@ def _by_card(steps: list[list[_Share]], n_cards: int) -> list[list[_Share]]:
     return own
 
 
-def _threads(cards: list[torch.device], timings: Optional[dict]) -> bool:
-    """Whether a call issues each device's work from a thread of its own:
-    for two or more CUDA devices (the CPU's plain versions already use
-    every core), and not when ``timings`` are taken (each mark waits for
-    every device).  On the H100s a thread a card took 0.1 s off a 2 GiB
-    encode over 4 cards or two shares on one, and cost 3-40 ms at 64 MiB
-    (``PERF.md`` §6)."""
-    return timings is None and len(cards) > 1 and all(d.type == "cuda" for d in cards)
-
-
-class _Issue:
-    """How a call issues a step's work on its devices.
-
-    :meth:`each` runs each of its functions on each share of a step.  With
-    ``threads`` off (:func:`_threads`), the calling thread runs the first
-    function on every share, then the second on every share, and so on:
-    every device's kernels are queued before any host copy.  Otherwise
-    each share's functions run in order on a thread of a pool of one a
-    device, with the caller's current stream of that share's device, so
-    that the devices' host copies run at once; every task ends before
-    :meth:`each` returns or raises.  Use it as a context manager: the
-    pool's threads end with it.
-    """
-
-    def __init__(self, cards: list[torch.device], threads: bool):
-        self.pool = ThreadPoolExecutor(len(cards), "redux-card") if threads else None
-        self.streams = [torch.cuda.current_stream(d) if d.type == "cuda" else None
-                        for d in cards]
-
-    def each(self, shares: Sequence[_Share], *fns: Callable[[_Share], None]) -> None:
-        if self.pool is None:
-            for fn in fns:
-                for sh in shares:
-                    fn(sh)
-            return
-        tasks = [self.pool.submit(self._run, sh, fns) for sh in shares]
-        wait(tasks)
-        for t in tasks:
-            t.result()
-
-    def _run(self, sh: _Share, fns) -> None:
-        stream = self.streams[sh.card]
-        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-            for fn in fns:
-                fn(sh)
-
-    def __enter__(self) -> "_Issue":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        if self.pool is not None:
-            self.pool.shutdown(wait=True)
+def _each(shares: Sequence[_Share], *fns: Callable[[_Share], None]) -> None:
+    """Run the first of ``fns`` on every share of a step, then the second
+    on every share, and so on: every device's kernels are queued before
+    the host copies that follow them."""
+    for fn in fns:
+        for sh in shares:
+            fn(sh)
 
 
 def _crc_of(steps: list[list[_Share]], crcs: dict, n: int, k: int) -> int:
@@ -613,8 +567,7 @@ def encode(
 
     ``_timings`` receives the wall time of each phase: ``pass1`` (each
     share's upload, histogram and crc), ``pass2`` (each share's upload,
-    K1 -> K2, the payload splice and its fetch) and ``header``.  With
-    ``_timings`` every device's work issues from the calling thread.
+    K1 -> K2, the payload splice and its fetch) and ``header``.
     """
     cards = _cards(device)
     clock = _Clock(_timings, cards)
@@ -663,75 +616,75 @@ def encode(
     def load_next(sh: _Share) -> None:
         ups[sh.card].prefetch()
 
-    with _Issue(cards, _threads(cards, _timings)) as issue:
+    for step in steps:
+        _each(step, count, load_next)
+    crc = _crc_of(steps, crcs, n, k)
+    hist = sum((h.cpu() for h in hists.values()), torch.zeros(256, dtype=torch.int64))
+    prior_extra = _prior_extra(hist.numpy(), params, prior_budget) if use_prior else None
+    ic = _init_cum(params, prior_extra)
+    _check_config(params, block_size, delta, int(ic[-1]))
+    clock.mark("pass1")
+
+    if n == 0:
+        return container.build_archive(params, block_size, 0, [], prior_extra, delta, crc)
+
+    # Pass 2, a step at a time: K1 -> K2 on each share's blocks and the
+    # raw rule, queued on every device of the step before any wire
+    # length is read; then, share by share in block order, the payload
+    # spliced on its device and fetched from there to its place after
+    # the header, which the wire lengths and raw flags then fill.  A
+    # block is stored raw unless its stream is shorter, so the payload
+    # takes at most n bytes.
+    n_words = _encode_words(params, k, delta)
+    ic_np = init_cum_from_numpy(ic, params, "cpu")
+    ic_t = {j: _to_device(ic_np, cards[j]) for j in busy}
+    head_len = container.header_bytes(n_blocks, prior_extra is not None)
+    wire_all = np.empty(n_blocks, dtype=np.int32)
+    raw_all = np.empty(n_blocks, dtype=bool)
+    coded = {}  # device -> its share's blocks, K2's words and (wire, raw) rows
+
+    def code(sh: _Share) -> None:
+        j = sh.card
+        blocks = (kept[j] if j in kept else ups[j].take()).view(sh.s1 - sh.s0, k)
+        lens_t = _to_device(lens[sh.s0 : sh.s1], cards[j])
+        words, bl, ov = encode_blocks_ranked(blocks, lens_t, ic_t[j], params, n_words, delta)
+        # Stored raw: overflowed blocks and any block not smaller coded.
+        raw = ov | (bl >= lens_t)
+        coded[j] = (blocks, words,
+                    torch.stack([torch.where(raw, lens_t, bl), raw.to(torch.int32)]))
+
+    def overlap(sh: _Share) -> None:
+        ups[sh.card].prefetch()  # the next share's host copy while K1 -> K2 run
+        fetches[sh.card].drain()  # the previous share's payload into place, likewise
+
+    with _Output(head_len + n) as out:
+        out.prefault(0, head_len)
+        fetches = {j: _Fetch(out, cards[j], max((sh.s1 - sh.s0) * k for sh in own[j]),
+                             min(2, len(own[j]))) for j in busy}
+        off = head_len
         for step in steps:
-            issue.each(step, count, load_next)
-        crc = _crc_of(steps, crcs, n, k)
-        hist = sum((h.cpu() for h in hists.values()), torch.zeros(256, dtype=torch.int64))
-        prior_extra = _prior_extra(hist.numpy(), params, prior_budget) if use_prior else None
-        ic = _init_cum(params, prior_extra)
-        _check_config(params, block_size, delta, int(ic[-1]))
-        clock.mark("pass1")
-
-        if n == 0:
-            return container.build_archive(params, block_size, 0, [], prior_extra, delta, crc)
-
-        # Pass 2, a step at a time: K1 -> K2 on each share's blocks and the
-        # raw rule, queued on every device of the step before any wire
-        # length is read; then, share by share in block order, the payload
-        # spliced on its device and fetched from there to its place after
-        # the header, which the wire lengths and raw flags then fill.  A
-        # block is stored raw unless its stream is shorter, so the payload
-        # takes at most n bytes.
-        n_words = _encode_words(params, k, delta)
-        ic_np = init_cum_from_numpy(ic, params, "cpu")
-        ic_t = {j: _to_device(ic_np, cards[j]) for j in busy}
-        head_len = container.header_bytes(n_blocks, prior_extra is not None)
-        wire_all = np.empty(n_blocks, dtype=np.int32)
-        raw_all = np.empty(n_blocks, dtype=bool)
-        coded = {}  # device -> its share's blocks, K2's words and (wire, raw) rows
-
-        def code(sh: _Share) -> None:
-            j = sh.card
-            blocks = (kept[j] if j in kept else ups[j].take()).view(sh.s1 - sh.s0, k)
-            lens_t = _to_device(lens[sh.s0 : sh.s1], cards[j])
-            words, bl, ov = encode_blocks_ranked(blocks, lens_t, ic_t[j], params, n_words, delta)
-            # Stored raw: overflowed blocks and any block not smaller coded.
-            raw = ov | (bl >= lens_t)
-            coded[j] = (blocks, words,
-                        torch.stack([torch.where(raw, lens_t, bl), raw.to(torch.int32)]))
-
-        def overlap(sh: _Share) -> None:
-            ups[sh.card].prefetch()  # the next share's host copy while K1 -> K2 run
-            fetches[sh.card].drain()  # the previous share's payload into place, likewise
-
-        with _Output(head_len + n) as out:
-            out.prefault(0, head_len)
-            fetches = {j: _Fetch(out, cards[j], max((sh.s1 - sh.s0) * k for sh in own[j]),
-                                 min(2, len(own[j]))) for j in busy}
-            off = head_len
-            for step in steps:
-                issue.each(step, code, overlap)
-                for sh in step:  # the wire lengths and flags to the host, S2 by them
-                    blocks, words, head = coded.pop(sh.card)
-                    head = head.cpu()
-                    wire, raw_h = head[0], head[1].bool()
-                    size = int(wire.numpy().sum(dtype=np.int64))
-                    out.prefault(off, off + size)
-                    payload = splice_payload(words, blocks, raw_h, wire)
-                    fetches[sh.card].put(sh.i, payload, off)
-                    off += size
-                    wire_all[sh.s0 : sh.s1], raw_all[sh.s0 : sh.s1] = wire.numpy(), raw_h.numpy()
-                    del blocks, words, payload
-            issue.each([own[j][-1] for j in busy], lambda sh: fetches[sh.card].drain())
-            clock.mark("pass2")
-            out.ready(0, head_len)
-            container.write_header(out.view.numpy(), params, block_size, n, prior_extra, delta,
-                                   crc, raw_all, wire_all)
-            del fetches
-            archive = out.result(off)
-            clock.mark("header")
-            return archive
+            _each(step, code, overlap)
+            for sh in step:  # the wire lengths and flags to the host, S2 by them
+                blocks, words, head = coded.pop(sh.card)
+                head = head.cpu()
+                wire, raw_h = head[0], head[1].bool()
+                size = int(wire.numpy().sum(dtype=np.int64))
+                out.prefault(off, off + size)
+                payload = splice_payload(words, blocks, raw_h, wire)
+                fetches[sh.card].put(sh.i, payload, off)
+                off += size
+                wire_all[sh.s0 : sh.s1], raw_all[sh.s0 : sh.s1] = wire.numpy(), raw_h.numpy()
+                del blocks, words, payload
+        for j in busy:
+            fetches[j].drain()
+        clock.mark("pass2")
+        out.ready(0, head_len)
+        container.write_header(out.view.numpy(), params, block_size, n, prior_extra, delta,
+                               crc, raw_all, wire_all)
+        del fetches
+        archive = out.result(off)
+        clock.mark("header")
+        return archive
 
 
 class _Lanes(NamedTuple):
@@ -852,9 +805,8 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     ``crc+fetch d2h`` (the copy to a pinned slot, and its wait) and
     ``crc+fetch copy`` (the slot into the result, with any wait for its
     prefault).  Each mark waits for the devices, which serializes the
-    fetch that otherwise overlaps the next share, and every device's work
-    issues from the calling thread: read the wall clock from a call
-    without ``_timings``.
+    fetch that otherwise overlaps the next share: read the wall clock
+    from a call without ``_timings``.
     """
     cards = _cards(device)
     clock = _Clock(_timings, cards)
@@ -902,15 +854,16 @@ def decode(archive: bytes, *, device: Devices = "cuda",
         fetches[j].put(sh.i, flat, sh.s0 * k)
         clock.mark("crc+fetch", "d2h")
 
-    with _Output(n) as output, _Issue(cards, _threads(cards, _timings)) as issue:
+    with _Output(n) as output:
         for step in steps:  # every byte of the result is written, a share at a time
             for sh in step:
                 output.prefault(sh.s0 * k, min(sh.s1 * k, n))
         fetches = {j: _Fetch(output, cards[j], rows[j] * k, outs[j].shape[0]) for j in busy}
         clock.mark("parse")
         for step in steps:
-            issue.each(step, decode_share, fetch_share)
-        issue.each([own[j][-1] for j in busy], lambda sh: fetches[sh.card].drain())
+            _each(step, decode_share, fetch_share)
+        for j in busy:
+            fetches[j].drain()
         del fetches
         clock.mark("crc+fetch", "copy")
         if _crc_of(steps, crcs, n, k) != header.crc32:

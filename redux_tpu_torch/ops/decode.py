@@ -28,8 +28,6 @@ from ..params import Parameters
 from .coder import (M32, check_code_bits, expect, kernel_device, mask, products_fit_53,
                     renorm_plain)
 
-launches = 0  # kernel launches of decode_blocks (CUDA tensors only)
-
 
 def decode_blocks_plain(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
                         params: Parameters, k: int, delta: int = 1) -> torch.Tensor:
@@ -95,7 +93,6 @@ def decode_blocks(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tenso
     zero past each block's count.  CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream.
     """
-    global launches
     dev = words.device
     if words.dtype == torch.uint32:
         words = words.view(torch.int32)
@@ -119,6 +116,5 @@ def decode_blocks(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tenso
         _build.stream_of(dev),
     )
     _build.check(err, "rxt_decode_blocks")
-    launches += 1
     _build.count_launch("decode", dev)
     return out

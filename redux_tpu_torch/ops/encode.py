@@ -28,9 +28,6 @@ from .coder import (M32, PlainCoder, check_code_bits, expect, expect_symbol_enco
                     kernel_device, products_fit_53, tfreeze)
 from .model import model_lohi, model_lohi_plain
 
-launches = 0  # kernel launches of encode_blocks (CUDA tensors only)
-fused_launches = 0  # kernel launches of encode_blocks_fused (CUDA tensors only)
-
 
 def encode_blocks_plain(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor,
                         init_total: int, params: Parameters, n_words: int, delta: int = 1):
@@ -66,7 +63,6 @@ def encode_blocks(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, init_t
     reciprocal-quotient instantiation where :func:`products_fit_53` (tpu_wide,
     tpu32) and with u64 divisions otherwise (the reference CLI's (8,30,32)).
     """
-    global launches
     dev = lo.device
     expect(lo, "lo", torch.int32, (None, None), dev)
     b, k = lo.shape
@@ -91,7 +87,6 @@ def encode_blocks(lo: torch.Tensor, hi: torch.Tensor, lens: torch.Tensor, init_t
         int(products_fit_53(params)), dev.index or 0, _build.stream_of(dev),
     )
     _build.check(err, "rxt_encode_blocks")
-    launches += 1
     _build.count_launch("encode", dev)
     return words, byte_lens, ovf
 
@@ -115,7 +110,6 @@ def encode_blocks_fused(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.
     the reference's kernel does.  CPU tensors take the plain version; CUDA
     tensors launch the kernel on the current stream.
     """
-    global fused_launches
     expect_symbol_encoder(syms, lens, init_cum, params, n_words, delta)
     b, k = syms.shape
     dev = syms.device
@@ -133,7 +127,6 @@ def encode_blocks_fused(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.
         params.code_bits, dev.index or 0, _build.stream_of(dev),
     )
     _build.check(err, "rxt_encode_fused")
-    fused_launches += 1
     _build.count_launch("encode_fused", dev)
     return words, byte_lens, ovf
 

@@ -22,8 +22,6 @@ from .. import _build
 from ..params import Parameters
 from .coder import PlainCoder, expect_symbol_encoder, kernel_device
 
-launches = 0  # kernel launches of encode_blocks_m (CUDA tensors only)
-
 
 def encode_blocks_m_plain(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
                           params: Parameters, n_words: int, delta: int = 1):
@@ -65,7 +63,6 @@ def encode_blocks_m(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tens
     take the plain version; CUDA tensors launch the kernel on the current
     stream.
     """
-    global launches
     expect_symbol_encoder(syms, lens, init_cum, params, n_words, delta)
     b, k = syms.shape
     dev = syms.device
@@ -83,6 +80,5 @@ def encode_blocks_m(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tens
         params.code_bits, dev.index or 0, _build.stream_of(dev),
     )
     _build.check(err, "rxt_encode_m")
-    launches += 1
     _build.count_launch("encode_m", dev)
     return words, byte_lens, ovf

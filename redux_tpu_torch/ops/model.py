@@ -19,8 +19,6 @@ from .. import _build
 from ..params import Parameters
 from .coder import expect, kernel_device, tfreeze
 
-launches = 0  # kernel launches of model_lohi (CUDA tensors only)
-
 
 def model_lohi_plain(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
                      params: Parameters, delta: int = 1):
@@ -50,7 +48,6 @@ def model_lohi(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
     int32 initial row, all on one device.  CPU tensors take the plain
     version; CUDA tensors launch the kernel on the current stream.
     """
-    global launches
     dev = syms.device
     expect(syms, "syms", torch.uint8, (None, None), dev)
     b, k = syms.shape
@@ -71,7 +68,6 @@ def model_lohi(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
         _build.stream_of(dev),
     )
     _build.check(err, "rxt_model_lohi")
-    launches += 1
     _build.count_launch("model_values", dev)
     return lo, hi
 

@@ -40,10 +40,6 @@ from .. import _build
 from ..errors import InvalidInputError
 from .coder import bytes_to_words, expect, kernel_device, words_to_bytes
 
-gather_launches = 0  # kernel launches of gather_rows (CUDA tensors only)
-splice_launches = 0  # kernel launches of splice_payload
-crc_launches = 0  # kernel launches of crc32
-
 CRC_SEGMENT = 256  # bytes a crc32 thread reads a tile, 16 at a time (csrc/staging.cu kCrcSegment)
 CRC_THREADS = 512  # threads of a crc32 CTA that read (csrc/staging.cu kCrcThreads)
 CRC_POLY = 0xEDB88320  # zlib's polynomial, reflected
@@ -87,7 +83,6 @@ def gather_rows(buf: torch.Tensor, offs, lens, width: int, words: bool = False) 
     up through pinned memory and the kernel is queued on the current
     stream.
     """
-    global gather_launches
     dev = buf.device
     expect(buf, "buf", torch.uint8, (None,), dev)
     offs, lens = _host_int64(offs, "offs"), _host_int64(lens, "lens")
@@ -107,7 +102,6 @@ def gather_rows(buf: torch.Tensor, offs, lens, width: int, words: bool = False) 
         table.numpy()[0], table.numpy()[1] = offs, lens
         table = table.to(dev, non_blocking=True)
         launch_gather_rows(buf, table[0], table[1], out, words)
-        gather_launches += 1
         _build.count_launch("gather_rows", dev)
     return out
 
@@ -186,7 +180,6 @@ def splice_payload(words: torch.Tensor, blocks: torch.Tensor, raw: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream (its row table from :func:`splice_rows`).
     """
-    global splice_launches
     dev = blocks.device
     expect(blocks, "blocks", torch.uint8, (None, None), dev)
     b, k = blocks.shape
@@ -201,7 +194,6 @@ def splice_payload(words: torch.Tensor, blocks: torch.Tensor, raw: torch.Tensor,
     out = torch.empty(int(wire.numpy().sum(dtype=np.int64)), dtype=torch.uint8, device=dev)
     if out.shape[0]:
         launch_splice_payload(_aligned(words), _aligned(blocks), *splice_rows(raw, wire, dev), out)
-        splice_launches += 1
         _build.count_launch("splice_payload", dev)
     return out
 
@@ -383,7 +375,6 @@ def crc32_device(u8: torch.Tensor, out: torch.Tensor | None = None) -> torch.Ten
     tensor there), with no wait.  Any alignment of ``u8``.  CPU tensors
     take the plain version; CUDA tensors launch the kernel on the current
     stream."""
-    global crc_launches
     dev = u8.device
     expect(u8, "u8", torch.uint8, (None,), dev)
     if out is None:
@@ -395,7 +386,6 @@ def crc32_device(u8: torch.Tensor, out: torch.Tensor | None = None) -> torch.Ten
     if u8.shape[0] == 0:
         return out.zero_()
     launch_crc32(u8, out)
-    crc_launches += 1
     _build.count_launch("crc32", dev)
     return out
 

@@ -858,10 +858,7 @@ def test_device_lists_on_the_card(cuda_device, monkeypatch, which):
 def test_device_lists_at_one_step_and_timed(cuda_device, which):
     """4 MiB over a device list in one step (each card keeps its share's
     blocks for pass 2): one card's archive and a byte-equal round trip,
-    with and without ``_timings`` (which issue from the calling thread);
-    the call leaves no thread behind."""
-    import threading
-
+    with and without ``_timings``."""
     from redux_tpu_torch import api, testdata
 
     devices = _device_list(which, cuda_device)
@@ -873,4 +870,3 @@ def test_device_lists_at_one_step_and_timed(cuda_device, which):
     assert api.decode(want, device=devices) == data
     assert api.decode(want, device=devices, _timings=t_dec) == data
     assert {"pass1", "pass2", "header"} <= set(t_enc) and "kernels" in t_dec
-    assert not [t for t in threading.enumerate() if t.name.startswith("redux-card")]

@@ -11,11 +11,17 @@ to the reference's own sharded branch over the 8 virtual CPU devices of
 ``tests/conftest.py``) and decoded back in both packages.  Tolerance 0.
 The plan and each device's uploads and fetches:
 ``tests/test_torch_dp_shares.py``.
+
+The plain versions run on one torch thread here (:func:`one_thread`):
+several test processes at once, each with a thread a core, oversubscribe
+the cores, and a parallel op then waits for threads that are not
+running (an encode of these inputs took 100 times longer).
 """
 
 import functools
 
 import pytest
+import torch
 
 from redux_tpu import api as ref_api
 
@@ -36,6 +42,22 @@ INPUTS = {
     "fewer_blocks_than_devices": (3, 100, {1}, None),
     "empty": (0, 0, set(), None),
 }
+
+
+# (input, devices) of the archive test: every input once, the one of
+# several steps on every list.
+CASES = [("several_steps", 2), ("several_steps", 3), ("several_steps", 4),
+         ("short_last_block_no_prior", 3), ("one_step_with_prior", 2),
+         ("fewer_blocks_than_devices", 4), ("empty", 3)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The module's tests on one torch thread, the count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -74,12 +96,8 @@ def _flat(steps):
     return [sh for step in steps for sh in step]
 
 
-@pytest.mark.parametrize("n", LISTS)
-@pytest.mark.parametrize("name", list(INPUTS))
-def test_archive_equals_the_one_device_and_the_reference(chunked, monkeypatch, name, n):
-    """Over 2 devices each device's work issues from a thread of its own,
-    as on the cards; over 3 and 4 from the calling thread, as on the CPU."""
-    monkeypatch.setattr(api, "_threads", lambda cards, timings: n == 2)
+@pytest.mark.parametrize("name, n", CASES)
+def test_archive_equals_the_one_device_and_the_reference(chunked, name, n):
     data, opts = _input(name)
     got = api.encode(data, device=["cpu"] * n, **opts)
     assert type(got) is bytes

@@ -3,12 +3,10 @@
 ``api._shares`` pinned (one device: the lane chunks), each device's
 uploads and fetches tiling exactly its shares (2, 3 and 4 CPU devices,
 the chunks cut to 128 blocks of 256 bytes), a flipped payload byte in
-every share raising, a failure on one device's thread, a CUDA device in
-a list without CUDA, and how a step is issued.  The inputs are
-``tests/test_torch_dp_route.py``'s.
+every share raising, a failure on one device, a CUDA device in a list
+without CUDA, and how a step is issued.  The inputs are
+``tests/test_torch_dp_route.py``'s, on one torch thread as there.
 """
-
-import threading
 
 import numpy as np
 import pytest
@@ -20,7 +18,8 @@ from redux_tpu import errors as ref_errors
 from redux_tpu_torch import api, container
 from redux_tpu_torch.errors import InvalidInputError
 
-from test_torch_dp_route import CHUNK, K, LISTS, _flat, _input, _reference, chunked  # noqa: F401
+from test_torch_dp_route import (CHUNK, K, LISTS, _flat, _input, _reference,  # noqa: F401
+                                 chunked, one_thread)
 
 
 def test_the_share_plan():
@@ -65,7 +64,7 @@ def test_the_share_plan():
 def _record(monkeypatch):
     """Each ``_Upload``'s and each ``_Fetch``'s record, in the order they
     were made: the uploads' ``(ranges, bytes taken)`` and the fetches'
-    ``(offset, length)`` of each put (any thread)."""
+    ``(offset, length)`` of each put."""
     ups, fetches = [], []
     real_up, real_take = api._Upload.__init__, api._Upload.take
     real_fetch, real_put = api._Fetch.__init__, api._Fetch.put
@@ -96,9 +95,9 @@ def _record(monkeypatch):
     return ups, fetches
 
 
-@pytest.mark.parametrize("n", LISTS)
-@pytest.mark.parametrize("name", ["several_steps", "one_step_with_prior",
-                                  "fewer_blocks_than_devices"])
+@pytest.mark.parametrize("name, n", [("several_steps", 2), ("several_steps", 3),
+                                     ("several_steps", 4), ("one_step_with_prior", 3),
+                                     ("fewer_blocks_than_devices", 4)])
 def test_each_device_uploads_and_fetches_its_shares(chunked, monkeypatch, name, n):
     """Encode: a device's uploads are its shares' bytes, zero to each
     share's end, twice where it has more than one share, once where it
@@ -164,24 +163,17 @@ def test_a_flipped_payload_byte_in_any_share_raises(chunked, n):
         ref_api.decode(bytes(bad))
 
 
-def _card_threads() -> list:
-    return [t for t in threading.enumerate() if t.name.startswith("redux-card")]
-
-
 @pytest.mark.parametrize("way", ["encode", "decode"])
-def test_a_failure_on_one_device_raises_after_every_device_ends(chunked, monkeypatch, way):
-    """A kernel wrapper that raises on one device's share, with a thread a
-    device (as on the cards): the call raises that error, once every
-    device's work of the step has ended, and leaves no thread behind; the
-    next call is whole."""
-    monkeypatch.setattr(api, "_threads", lambda cards, timings: True)
+def test_a_failure_on_one_device_raises(chunked, monkeypatch, way):
+    """A kernel wrapper that raises on the second device's share: the call
+    raises that error, and the next call is whole."""
     data, opts = _input("one_step_with_prior")
     arch = api.encode(data, device="cpu", **opts)
     name = "encode_blocks_ranked" if way == "encode" else "decode_blocks"
     real, calls = getattr(api, name), []
 
     def fail_on_second(*args, **kwargs):
-        calls.append(threading.current_thread().name)
+        calls.append(args[0].device)
         if len(calls) == 2:
             raise RuntimeError("launch failed")
         return real(*args, **kwargs)
@@ -192,7 +184,7 @@ def test_a_failure_on_one_device_raises_after_every_device_ends(chunked, monkeyp
             api.encode(data, device=["cpu"] * 3, **opts)
         else:
             api.decode(arch, device=["cpu"] * 3)
-    assert len(calls) >= 2 and not _card_threads()
+    assert len(calls) == 2
     monkeypatch.setattr(api, name, real)
     assert api.encode(data, device=["cpu"] * 3, **opts) == arch
     assert api.decode(arch, device=["cpu"] * 3) == data
@@ -213,28 +205,15 @@ def test_a_cuda_device_in_a_list_raises_without_cuda():
         api.encode(data, device=[], **opts)
 
 
-@pytest.mark.parametrize("threads", [False, True])
-def test_how_a_step_is_issued(threads):
-    """One issuing thread runs the first function on every share, then the
-    second: every device's kernels queue before any host copy.  A thread
-    a device runs each share's functions in order, each share on a thread
-    of the pool, and ends them before returning."""
-    cards = [torch.device("cpu")] * 3
+def test_how_a_step_is_issued():
+    """The first function runs on every share of the step, then the
+    second: every device's kernels queue before any host copy."""
     step = [api._Share(j, 0, 10 * j, 10 * j + 10) for j in range(3)]
     seen = []
 
     def note(what):
-        return lambda sh: seen.append((what, sh.card, threading.current_thread().name))
+        return lambda sh: seen.append((what, sh.card))
 
-    with api._Issue(cards, threads) as issue:
-        issue.each(step, note("queue"), note("copy"))
-    names = {name for _, _, name in seen}
-    if not threads:
-        assert [(w, j) for w, j, _ in seen] == [("queue", 0), ("queue", 1), ("queue", 2),
-                                                 ("copy", 0), ("copy", 1), ("copy", 2)]
-        assert names == {threading.current_thread().name}
-    else:
-        for j in range(3):
-            assert [w for w, c, _ in seen if c == j] == ["queue", "copy"]
-        assert all(name.startswith("redux-card") for name in names)
-    assert not _card_threads()
+    api._each(step, note("queue"), note("copy"))
+    assert seen == [("queue", 0), ("queue", 1), ("queue", 2), ("copy", 0), ("copy", 1),
+                    ("copy", 2)]

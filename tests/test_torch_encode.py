@@ -245,6 +245,7 @@ def test_encode_blocks_passes_products_fit_53(monkeypatch):
     """encode_blocks launches the reciprocal instantiation (flag 1) at
     tpu_wide and tpu32 and the u64 one (flag 0) at the reference CLI's
     (8,30,32); the flag is what products_fit_53 says."""
+    import redux_tpu_torch
     from redux_tpu_torch import _build
     from redux_tpu_torch.ops import encode as enc
 
@@ -256,7 +257,7 @@ def test_encode_blocks_passes_products_fit_53(monkeypatch):
             return 0
 
     monkeypatch.setattr(enc, "kernel_device", lambda dev: True)
-    monkeypatch.setattr(enc, "launches", 0)
+    monkeypatch.setattr(_build, "card_launches", type(_build.card_launches)())
     monkeypatch.setattr(_build, "lib", lambda: FakeLib())
     monkeypatch.setattr(_build, "stream_of", lambda dev: 0)
     lo = torch.zeros(2, 8, dtype=torch.int32)
@@ -266,7 +267,7 @@ def test_encode_blocks_passes_products_fit_53(monkeypatch):
         assert products_fit_53(params) == bool(fits)
         encode_blocks(lo, lo, lens, 257, params, 4, 16)
         assert seen[-1][13] == fits, params
-    assert enc.launches == 3
+    assert redux_tpu_torch.launch_counts()["encode"] == 3
 
 
 def test_symbol_encoder_params_fit_53():
