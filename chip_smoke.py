@@ -542,10 +542,10 @@ def _at_size(dev, data):
     memory must stay under its reckoning from one chunk's shapes
     (``cuda_checks.encode_memory_bound``), the decode's under two chunk
     slots (``cuda_checks.decode_memory_bound``) and under the encode's.
-    Prints wall clock (the decode's from a call without ``_timings``, whose
-    marks wait for the card), host phases (the decode's from a second call,
-    with them), peak device memory, the host RSS the encode holds at its
-    end and the rise of the peak host RSS each way."""
+    Prints wall clock (the decode's from a call without ``_timings``), host
+    phases and their parts (the decode's from a second call, with them),
+    peak device memory, the host RSS the encode holds at its end and the
+    rise of the peak host RSS each way."""
     import numpy as np
 
     import redux_tpu_torch
@@ -610,7 +610,7 @@ def _at_size(dev, data):
           f"byte-equal, crc verified; launches {json.dumps(counts)}")
     print(f"at size: encode {t1 - t0:.3f} s ({len(data) / (t1 - t0) / 1e6:.3f} MB/s), decode "
           f"{t2 - t_d:.3f} s ({len(data) / (t2 - t_d) / 1e6:.3f} MB/s), wall clock with host work "
-          f"(the decode without _timings; {t_dec_timed:.3f} s with them)")
+          f"(the decode without _timings; {t_dec_timed:.3f} s with them, recorded)")
     print("at size: encode phases s " + json.dumps({k: round(v, 4) for k, v in t_enc.items()}))
     print("at size: decode phases s " + json.dumps({k: round(v, 4) for k, v in t_dec.items()}))
     print(f"at size: peak device memory {dev_enc:.3f} GiB encode ({before_enc:.3f} GiB "

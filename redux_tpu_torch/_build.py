@@ -59,6 +59,7 @@ SIGNATURES = {
 _lib = None
 _lock = threading.Lock()
 card_launches: collections.Counter = collections.Counter()  # (kernel, device index) -> launches
+bus_bytes: collections.Counter = collections.Counter()  # "h2d" / "d2h" -> bytes over the bus
 
 
 def nvcc() -> str:
@@ -188,6 +189,15 @@ def count_launch(kernel: str, device: torch.device) -> None:
     which ``redux_tpu_torch.launch_counts`` reads: each wrapper calls it
     where it launches its kernel, and nowhere else."""
     card_launches[kernel, device.index or 0] += 1
+
+
+def count_bus(h2d: int = 0, d2h: int = 0) -> None:
+    """Bytes copied to (``h2d``) and from (``d2h``) a device into
+    :data:`bus_bytes`, which ``api``'s recorder reads: each copy between
+    the host and a device calls it where it copies, and the plain CPU
+    versions where they stand in for such a copy."""
+    bus_bytes["h2d"] += h2d
+    bus_bytes["d2h"] += d2h
 
 
 def stream_of(device: torch.device) -> int:

@@ -57,16 +57,18 @@ change ``encode_auto``'s candidates, and so its bytes, silently.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import mmap
 import time
 import warnings
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from . import container, native
+from . import _build, container, native
 from .container import DEFAULT_BLOCK_SIZE, DEFAULT_DELTA, DEFAULT_PRIOR_BUDGET
 from .convert import init_cum_from_numpy
 from .errors import InvalidInputError, ReduxError
@@ -128,7 +130,11 @@ def _encode_words(params: Parameters, k: int, delta: int) -> int:
 
 def _byte_histogram(u8: torch.Tensor) -> torch.Tensor:
     """(256,) int64 counts of the bytes of a uint8 tensor, on its device
-    (the reference's ``np.bincount``; plain PyTorch on any device)."""
+    (the reference's ``np.bincount``; plain PyTorch on any device).
+    ``torch.bincount`` first reads the largest byte back to the host, so
+    on a CUDA device the host waits for the work queued before."""
+    if u8.numel():
+        _build.count_bus(d2h=u8.element_size())
     return torch.bincount(u8, minlength=256)
 
 
@@ -249,11 +255,13 @@ def _each(shares: Sequence[_Share], *fns: Callable[[_Share], None]) -> None:
             fn(sh)
 
 
-def _crc_of(steps: list[list[_Share]], crcs: dict, n: int, k: int) -> int:
+def _crc_of(steps: list[list[_Share]], crcs: dict, n: int, k: int,
+            rec: Optional[_Recorder] = None) -> int:
     """The CRC-32 of a call's ``n`` bytes from each share's CRC, ``crcs[j][i]``
-    on device ``j`` for its share ``i`` (one fetch a device), combined in
-    block order."""
-    got = {j: c.cpu().to(torch.int64) & 0xFFFFFFFF for j, c in crcs.items()}
+    on device ``j`` for its share ``i`` (one fetch a device, the call's
+    ``sums wait``), combined in block order."""
+    got = {j: _to_host(c).to(torch.int64) & 0xFFFFFFFF for j, c in crcs.items()}
+    _mark(rec, "sums wait")
     order = [sh for step in steps for sh in step]
     return combine_crcs(torch.tensor([int(got[sh.card][sh.i]) for sh in order], dtype=torch.int64),
                         torch.tensor([n - min(sh.s1 * k, n) for sh in order], dtype=torch.int64))
@@ -268,26 +276,71 @@ def _require_cuda(device: torch.device) -> None:
             "is false; pass device='cpu' to run the plain PyTorch versions")
 
 
-class _Clock:
-    """Wall time per phase into ``timings`` (seconds, accumulated).  With
-    ``timings`` given, each mark first waits for the CUDA devices of
-    ``devices``, so a phase holds the device work it queued."""
+RECORDED_CALLS = 4096  # the recorded calls kept, newest last: a traced window's and more
+_records: deque = deque(maxlen=RECORDED_CALLS)
+_call_ids = itertools.count()
 
-    def __init__(self, timings: Optional[dict], devices: Sequence[torch.device] = ()):
-        self.tt = timings if timings is not None else {}
-        self.wait = list(dict.fromkeys(d for d in devices if d.type == "cuda")) if (
-            timings is not None) else []
-        self.t0 = time.perf_counter()
 
-    def mark(self, name: str, part: Optional[str] = None) -> None:
-        """Time since the last mark into ``name`` and, with ``part``, also
-        into ``"name part"``: a phase's parts sum to the phase."""
-        for d in self.wait:
-            torch.cuda.synchronize(d)
-        now = time.perf_counter()
-        for key in (name, f"{name} {part}") if part else (name,):
-            self.tt[key] = self.tt.get(key, 0.0) + (now - self.t0)
+def recorded_calls() -> list[dict]:
+    """The last :data:`RECORDED_CALLS` calls of :func:`encode` and
+    :func:`decode` made with ``_timings`` that returned, oldest first.
+    Each is a dict: ``id`` (in call order), ``kind`` (``"enc"`` or
+    ``"dec"``), ``bytes_in`` and ``bytes_out`` (the call's argument and
+    result), ``cards`` (its devices), ``spans`` (``(phase, part,
+    start_ns, end_ns)`` a mark) and ``h2d`` and ``d2h`` (bytes the call
+    copied to and from its devices, ``_build.bus_bytes`` over the call)."""
+    return list(_records)
+
+
+class _Recorder:
+    """The record of one call made with ``_timings``: a span a mark, and
+    the bytes the call copies over the bus.
+
+    The call sets its phase (``phase``); :meth:`mark` ends the span since
+    the previous mark (the recorder's start for the first) as ``part`` of
+    that phase and adds its seconds to ``timings[phase]`` and
+    ``timings["phase part"]`` at once, so a phase is the sum of its parts
+    and a ``_timings`` that notes its writes notes each span's end.
+    Nothing here waits for a device: a recorded call issues the waits of
+    an unrecorded one.  Times are ``time.time_ns()``, the clock
+    ``torch.profiler`` stamps its host events with.  The bytes are what
+    the copies count into ``_build.bus_bytes`` from the recorder's start
+    until the call has its result and hands its record to
+    :func:`recorded_calls` (:meth:`done`)."""
+
+    def __init__(self, timings: dict, kind: str, nbytes: int, cards: Sequence[torch.device]):
+        self.tt, self.kind, self.bytes_in = timings, kind, nbytes
+        self.cards = [str(d) for d in cards]
+        self.phase = ""
+        self.spans = []
+        self.bus0 = _build.bus_bytes.copy()
+        self.t0 = time.time_ns()
+
+    def mark(self, part: str) -> None:
+        now = time.time_ns()
+        ns = now - self.t0
+        for key in (self.phase, f"{self.phase} {part}"):  # first, close to ``now``
+            self.tt[key] = self.tt.get(key, 0.0) + ns / 1e9
+        self.spans.append((self.phase, part, self.t0, now))
         self.t0 = now
+
+    def done(self, nbytes: int) -> None:
+        """The call returns ``nbytes``: its record into :func:`recorded_calls`."""
+        bus = {way: _build.bus_bytes[way] - self.bus0[way] for way in ("h2d", "d2h")}
+        _records.append(dict(id=next(_call_ids), kind=self.kind, bytes_in=self.bytes_in,
+                             bytes_out=nbytes, cards=self.cards, spans=self.spans, **bus))
+
+
+def _phase(rec: Optional[_Recorder], phase: str) -> None:
+    """The recorded call's next marks are parts of ``phase``."""
+    if rec is not None:
+        rec.phase = phase
+
+
+def _mark(rec: Optional[_Recorder], part: str) -> None:
+    """End the recorded call's span since its last mark as ``part``."""
+    if rec is not None:
+        rec.mark(part)
 
 
 _new_pybytes = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ssize_t)(
@@ -320,15 +373,17 @@ class _Output:
     ``TOUCH_PIECE`` bytes a task, while the card works; :meth:`ready`
     waits for a range's tasks before the caller writes it.  Every task is
     waited for (or cancelled) before the object is handed over or freed.
+    Each wait for the tasks is a ``prefault wait`` of ``rec``, the call's
+    recorder (None where the call is not recorded).
     """
 
     TOUCH_THREADS = 4
     TOUCH_PIECE = 16 << 20
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, rec: Optional[_Recorder] = None):
         if n < 1:
             raise ValueError("n must be >= 1")
-        self.n = n
+        self.n, self.rec = n, rec
         self._ptr = ctypes.c_void_p(_new_pybytes(None, n))
         self.view = torch.frombuffer(
             (ctypes.c_uint8 * n).from_address(_pybytes_data(self._ptr)), dtype=torch.uint8)
@@ -350,6 +405,7 @@ class _Output:
         for p, q, done in self._touches:
             if p < b and a < q:
                 done.result()
+        _mark(self.rec, "prefault wait")
 
     def _join(self) -> None:
         """Wait for the prefault tasks, cancelling those not started."""
@@ -363,6 +419,7 @@ class _Output:
         if not 1 <= m <= self.n:
             raise ValueError(f"length {m} outside 1..{self.n}")
         self._join()
+        _mark(self.rec, "prefault wait")
         self.view = None
         ptr, self._ptr = self._ptr, None
         _pybytes_resize(ctypes.byref(ptr), m)
@@ -393,7 +450,15 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A small host array on ``device``: on a CUDA device through pinned
     memory, queued on the current stream with no wait."""
     t = torch.from_numpy(np.ascontiguousarray(a))
+    _build.count_bus(h2d=t.nbytes)
     return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A small device tensor on the host: on a CUDA device the host waits
+    for it."""
+    _build.count_bus(d2h=t.nbytes)
+    return t.cpu()
 
 
 def _pinned(n: int) -> torch.Tensor:
@@ -421,14 +486,22 @@ class _Upload:
     last upload ended, and the side stream overwrites a device slot only
     after the work queued on the current stream by the range before it.
     On the CPU a range is a plain copy: no pinned memory, no stream.
+
+    Each range counts the bytes it takes from ``data`` (the zeroed tail
+    is set on the device).  ``rec``, the call's recorder (None where the
+    call is not recorded), marks the host's steps of a copy: the pinned
+    slots' allocation (``pin``), the wait for a slot's last upload (``slot
+    wait``) and the host copy with the pieces' queueing (``stage``).
     """
 
     PIECE = 32 << 20
 
-    def __init__(self, data, ranges: Sequence[tuple[int, int, int]], device: torch.device):
+    def __init__(self, data, ranges: Sequence[tuple[int, int, int]], device: torch.device,
+                 rec: Optional[_Recorder] = None):
         self.src = _host_u8(data)
         self.ranges = list(ranges)
         self.device = device
+        self.rec = rec
         n_slots = min(2, len(self.ranges))
         width = max((n for _, _, n in self.ranges), default=0)
         self.slots = torch.empty(n_slots, width, dtype=torch.uint8, device=device)
@@ -446,14 +519,18 @@ class _Upload:
         s = j % self.slots.shape[0]
         dst = self.slots[s]
         self.loaded += 1
+        _build.count_bus(h2d=b - a)
         if self.side is None:
             dst[: b - a].copy_(self.src[a:b])
             dst[b - a : n].zero_()
+            _mark(self.rec, "stage")
             return
         if not self.pinned:
             self.pinned = [_pinned(self.slots.shape[1]) for _ in range(self.slots.shape[0])]
+            _mark(self.rec, "pin")
         if self.uploaded[s] is not None:
             self.uploaded[s].synchronize()
+            _mark(self.rec, "slot wait")
         if self.released[s] is not None:
             self.side.wait_event(self.released[s])
         pin = self.pinned[s]
@@ -465,6 +542,7 @@ class _Upload:
         with torch.cuda.stream(self.side):
             dst[b - a : n].zero_()
             self.uploaded[s] = self.side.record_event()
+        _mark(self.rec, "stage")
 
     def prefetch(self) -> None:
         """Copy the range after the one last taken, if there is one."""
@@ -500,10 +578,15 @@ class _Fetch:
     the CPU, put copies into ``dst`` at once: no pinned memory, no stream.
     Each copy into ``dst`` first waits for the range's prefault
     (:meth:`_Output.ready`).
+
+    Each range counts its bytes.  The output's recorder (``out.rec``)
+    marks the host's steps: the pinned slots' allocation (``pin``), a
+    put's queueing (``launch``), the wait for a fetch (``fetch wait``) and
+    the copy into ``dst`` (``copy``).
     """
 
     def __init__(self, out: _Output, device: torch.device, slot_bytes: int, n_slots: int):
-        self.out = out
+        self.out, self.rec = out, out.rec
         self.slot_bytes, self.n_slots = slot_bytes, n_slots
         self.side = torch.cuda.Stream(device) if device.type == "cuda" else None
         self.pinned = []
@@ -512,26 +595,32 @@ class _Fetch:
     def put(self, i: int, flat: torch.Tensor, off: int) -> None:
         """Range ``i``'s bytes ``flat`` (on the device) to ``dst[off:]``."""
         self.drain()
+        _build.count_bus(d2h=flat.nbytes)
         if self.side is None:
             self.out.ready(off, off + flat.shape[0])
             self.out.view[off : off + flat.shape[0]].copy_(flat)
+            _mark(self.rec, "copy")
             return
         if not self.pinned:
             self.pinned = [_pinned(self.slot_bytes) for _ in range(self.n_slots)]
+            _mark(self.rec, "pin")
         slot = self.pinned[i % self.n_slots][: flat.shape[0]]
         self.side.wait_stream(torch.cuda.current_stream(flat.device))
         flat.record_stream(self.side)  # its memory is reused only once the copy ends
         with torch.cuda.stream(self.side):
             slot.copy_(flat, non_blocking=True)
             self.pending = (self.side.record_event(), slot, off)
+        _mark(self.rec, "launch")
 
     def drain(self) -> None:
         """The pending range from its pinned slot into ``dst``."""
         if self.pending is not None:
             done, slot, off = self.pending
             done.synchronize()
+            _mark(self.rec, "fetch wait")
             self.out.ready(off, off + slot.shape[0])
             self.out.view[off : off + slot.shape[0]].copy_(slot)
+            _mark(self.rec, "copy")
             self.pending = None
 
 
@@ -565,12 +654,15 @@ def encode(
     range's pages are prefaulted once its length is known
     (:meth:`_Output.prefault`).
 
-    ``_timings`` receives the wall time of each phase: ``pass1`` (each
-    share's upload, histogram and crc), ``pass2`` (each share's upload,
-    K1 -> K2, the payload splice and its fetch) and ``header``.
+    With ``_timings`` (a dict) the call is recorded (:func:`recorded_calls`)
+    and ``_timings`` receives the host seconds of each phase, ``pass1``
+    (each share's upload, histogram and crc, the prior), ``pass2`` (each
+    share's upload, K1 -> K2, the payload splice and its fetch) and
+    ``header``, and of each part of a phase (``"pass2 stage"``), at each
+    mark: no mark waits for a device.
     """
     cards = _cards(device)
-    clock = _Clock(_timings, cards)
+    rec = _Recorder(_timings, "enc", len(data), cards) if _timings is not None else None
     params = params or Parameters.tpu_wide()
     if block_size is None:
         block_size = _default_block_size(len(data), lane_quantum)
@@ -596,11 +688,14 @@ def encode(
 
     # Each device reads its shares twice (pass 2 again) where it has more
     # than one, else once: it keeps its one share's blocks for pass 2.
+    _phase(rec, "pass1")
     ups = {j: _Upload(data, [span(sh) for sh in own[j]] * (1 if len(own[j]) == 1 else 2),
-                      cards[j]) for j in busy}
+                      cards[j], rec) for j in busy}
+    _mark(rec, "alloc")
     hists = {j: torch.zeros(256, dtype=torch.int64, device=cards[j]) for j in busy}
     crcs = {j: torch.zeros(len(own[j]), dtype=torch.int32, device=cards[j]) for j in busy}
     kept = {}
+    _mark(rec, "launch")
 
     # Pass 1, a step at a time: each share's histogram and crc on its
     # device, fetched once after the last step.
@@ -609,24 +704,31 @@ def encode(
         a, b, _ = span(sh)
         if use_prior:
             hists[sh.card] += _byte_histogram(slot[: b - a])
+            _mark(rec, "histogram wait")
         crc32_device(slot[: b - a], crcs[sh.card][sh.i : sh.i + 1])
         if len(own[sh.card]) == 1:
             kept[sh.card] = slot
+        _mark(rec, "launch")
 
     def load_next(sh: _Share) -> None:
         ups[sh.card].prefetch()
 
     for step in steps:
         _each(step, count, load_next)
-    crc = _crc_of(steps, crcs, n, k)
-    hist = sum((h.cpu() for h in hists.values()), torch.zeros(256, dtype=torch.int64))
+    hist = sum((_to_host(h) for h in hists.values()), torch.zeros(256, dtype=torch.int64))
+    crc = _crc_of(steps, crcs, n, k, rec)
     prior_extra = _prior_extra(hist.numpy(), params, prior_budget) if use_prior else None
     ic = _init_cum(params, prior_extra)
     _check_config(params, block_size, delta, int(ic[-1]))
-    clock.mark("pass1")
+    _mark(rec, "prior")
 
     if n == 0:
-        return container.build_archive(params, block_size, 0, [], prior_extra, delta, crc)
+        archive = container.build_archive(params, block_size, 0, [], prior_extra, delta, crc)
+        _phase(rec, "header")
+        _mark(rec, "header")
+        if rec is not None:
+            rec.done(len(archive))
+        return archive
 
     # Pass 2, a step at a time: K1 -> K2 on each share's blocks and the
     # raw rule, queued on every device of the step before any wire
@@ -635,9 +737,10 @@ def encode(
     # the header, which the wire lengths and raw flags then fill.  A
     # block is stored raw unless its stream is shorter, so the payload
     # takes at most n bytes.
+    _phase(rec, "pass2")
     n_words = _encode_words(params, k, delta)
     ic_np = init_cum_from_numpy(ic, params, "cpu")
-    ic_t = {j: _to_device(ic_np, cards[j]) for j in busy}
+    ic_total = int(ic_np[-1])  # K2's total, from the host: no read of the card's row
     head_len = container.header_bytes(n_blocks, prior_extra is not None)
     wire_all = np.empty(n_blocks, dtype=np.int32)
     raw_all = np.empty(n_blocks, dtype=bool)
@@ -647,43 +750,53 @@ def encode(
         j = sh.card
         blocks = (kept[j] if j in kept else ups[j].take()).view(sh.s1 - sh.s0, k)
         lens_t = _to_device(lens[sh.s0 : sh.s1], cards[j])
-        words, bl, ov = encode_blocks_ranked(blocks, lens_t, ic_t[j], params, n_words, delta)
+        words, bl, ov = encode_blocks_ranked(blocks, lens_t, ic_t[j], params, n_words, delta,
+                                             ic_total)
         # Stored raw: overflowed blocks and any block not smaller coded.
         raw = ov | (bl >= lens_t)
         coded[j] = (blocks, words,
                     torch.stack([torch.where(raw, lens_t, bl), raw.to(torch.int32)]))
+        _mark(rec, "launch")
 
     def overlap(sh: _Share) -> None:
         ups[sh.card].prefetch()  # the next share's host copy while K1 -> K2 run
         fetches[sh.card].drain()  # the previous share's payload into place, likewise
 
-    with _Output(head_len + n) as out:
+    with _Output(head_len + n, rec) as out:
         out.prefault(0, head_len)
         fetches = {j: _Fetch(out, cards[j], max((sh.s1 - sh.s0) * k for sh in own[j]),
                              min(2, len(own[j]))) for j in busy}
+        _mark(rec, "alloc")
+        ic_t = {j: _to_device(ic_np, cards[j]) for j in busy}
+        _mark(rec, "launch")
         off = head_len
         for step in steps:
             _each(step, code, overlap)
             for sh in step:  # the wire lengths and flags to the host, S2 by them
                 blocks, words, head = coded.pop(sh.card)
-                head = head.cpu()
+                head = _to_host(head)
+                _mark(rec, "lengths wait")
                 wire, raw_h = head[0], head[1].bool()
+                wire_all[sh.s0 : sh.s1], raw_all[sh.s0 : sh.s1] = wire.numpy(), raw_h.numpy()
                 size = int(wire.numpy().sum(dtype=np.int64))
                 out.prefault(off, off + size)
                 payload = splice_payload(words, blocks, raw_h, wire)
+                _mark(rec, "launch")
                 fetches[sh.card].put(sh.i, payload, off)
                 off += size
-                wire_all[sh.s0 : sh.s1], raw_all[sh.s0 : sh.s1] = wire.numpy(), raw_h.numpy()
                 del blocks, words, payload
         for j in busy:
             fetches[j].drain()
-        clock.mark("pass2")
+        _phase(rec, "header")
         out.ready(0, head_len)
         container.write_header(out.view.numpy(), params, block_size, n, prior_extra, delta,
                                crc, raw_all, wire_all)
+        _mark(rec, "header")
         del fetches
         archive = out.result(off)
-        clock.mark("header")
+        _mark(rec, "header")
+        if rec is not None:
+            rec.done(len(archive))
         return archive
 
 
@@ -746,14 +859,17 @@ def _stream_ends(header, lanes: _Lanes) -> np.ndarray:
 
 
 def _decode_chunk(arch: torch.Tensor, base: int, header, lanes: _Lanes, s0: int,
-                  out: torch.Tensor, ic_t: torch.Tensor) -> None:
+                  out: torch.Tensor, ic_t: torch.Tensor, rec: Optional[_Recorder] = None
+                  ) -> None:
     """Blocks ``s0 .. s0 + len(out)`` into the rows of ``out`` (``(rows,
     k)`` uint8 on ``arch``'s device) from their slice ``arch`` of the
     archive, which starts at archive offset ``base``: a raw block's row is
     its stored bytes (S1, bytes), the coded blocks go through S1 (words)
     and K3 sorted by coded length, and their symbols into their rows.  Both
     S1 calls check their rows on the host and queue their kernels with no
-    wait.  No coded block, no K3."""
+    wait.  No coded block, no K3.  Recorded (``rec``): the lanes' host work
+    with both S1 calls (``lanes``), then K3 and the rows' placement
+    (``launch``)."""
     dev = arch.device
     raw = lanes.raw[s0 : s0 + out.shape[0]]
     ri, ci = np.flatnonzero(raw), np.flatnonzero(~raw)
@@ -764,12 +880,15 @@ def _decode_chunk(arch: torch.Tensor, base: int, header, lanes: _Lanes, s0: int,
     if ci.size:
         ci = ci[_by_length(lanes.coded_lens[s0 + ci])]
         words, klens = _stage_lanes(arch, header, lanes, s0 + ci, base)
+    _mark(rec, "lanes")
+    if ci.size:
         k, p, d = header.block_size, header.params, header.delta
         syms = decode_blocks(words, klens, ic_t, p, k, d)
         del words
         out.index_copy_(0, _to_device(ci, dev), syms)
     if ri.size:
         out.index_copy_(0, _to_device(ri, dev), rows)
+    _mark(rec, "launch")
 
 
 def decode(archive: bytes, *, device: Devices = "cuda",
@@ -797,25 +916,27 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     threads while the devices decode (:meth:`_Output.prefault`), so the
     fetches' copies write pages that are there.
 
-    ``_timings`` receives the wall time of each phase, summed over the
-    shares: ``parse`` (the header and the lanes), ``upload`` (a share's
-    slice), ``kernels`` (S1 -> K3 into the rows, the raw rows) and
-    ``crc+fetch`` (S3, the copy to the host and into the result), which
-    splits into ``crc+fetch s3`` (S3, and the CRCs' combine and check),
-    ``crc+fetch d2h`` (the copy to a pinned slot, and its wait) and
-    ``crc+fetch copy`` (the slot into the result, with any wait for its
-    prefault).  Each mark waits for the devices, which serializes the
-    fetch that otherwise overlaps the next share: read the wall clock
-    from a call without ``_timings``.
+    With ``_timings`` (a dict) the call is recorded (:func:`recorded_calls`)
+    and ``_timings`` receives the host seconds of each phase, summed over
+    the shares: ``parse`` (the header and the lanes), ``upload`` (a
+    share's slice), ``kernels`` (S1 -> K3 into the rows, the raw rows) and
+    ``crc+fetch`` (S3, the copy to the host and into the result, the
+    CRCs' combine and check), and of each part of a phase (``"kernels
+    lanes"``), at each mark: no mark waits for a device, so a recorded
+    call overlaps what an unrecorded one does.
     """
     cards = _cards(device)
-    clock = _Clock(_timings, cards)
+    rec = _Recorder(_timings, "dec", len(archive), cards) if _timings is not None else None
+    _phase(rec, "parse")
     header = container.parse_table(archive)
     params = header.params
     for d in cards:
         _require_cuda(d)
     if header.orig_len == 0:
         container.verify_crc(header, b"")
+        _mark(rec, "parse")
+        if rec is not None:
+            rec.done(0)
         return b""
     n, k, n_blocks = header.orig_len, header.block_size, header.n_blocks
     lanes = _decode_lanes(header)
@@ -825,51 +946,57 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     busy = [j for j, mine in enumerate(own) if mine]
     ends = _stream_ends(header, lanes)
     base = {sh: int(header.stream_offs[sh.s0]) for step in steps for sh in step}
+    _mark(rec, "parse")
     ups = {j: _Upload(archive, [(base[sh], int(ends[sh.s1 - 1]), int(ends[sh.s1 - 1]) - base[sh])
-                                for sh in own[j]], cards[j]) for j in busy}
+                                for sh in own[j]], cards[j], rec) for j in busy}
     rows = {j: max(sh.s1 - sh.s0 for sh in own[j]) for j in busy}
     outs = {j: torch.empty(min(2, len(own[j])), rows[j], k, dtype=torch.uint8, device=cards[j])
             for j in busy}
-    crcs = {j: torch.zeros(len(own[j]), dtype=torch.int32, device=cards[j]) for j in busy}
-    ic_t = {j: _to_device(ic, cards[j]) for j in busy}
 
     def rows_of(sh: _Share) -> torch.Tensor:
         return outs[sh.card][sh.i % outs[sh.card].shape[0], : sh.s1 - sh.s0]
 
     def decode_share(sh: _Share) -> None:
+        _phase(rec, "upload")
         arch = ups[sh.card].take()
-        clock.mark("upload")
-        _decode_chunk(arch, base[sh], header, lanes, sh.s0, rows_of(sh), ic_t[sh.card])
-        clock.mark("kernels")
+        _mark(rec, "launch")
+        _phase(rec, "kernels")
+        _decode_chunk(arch, base[sh], header, lanes, sh.s0, rows_of(sh), ic_t[sh.card], rec)
 
     def fetch_share(sh: _Share) -> None:
         j = sh.card
+        _phase(rec, "upload")
         ups[j].prefetch()  # the next share's host copy while K3 runs
-        clock.mark("upload")
+        _phase(rec, "crc+fetch")
         fetches[j].drain()  # the previous share into the result, likewise
-        clock.mark("crc+fetch", "copy")
         flat = rows_of(sh).view(-1)[: min(sh.s1 * k, n) - sh.s0 * k]
         crc32_device(flat, crcs[j][sh.i : sh.i + 1])
-        clock.mark("crc+fetch", "s3")
+        _mark(rec, "launch")
         fetches[j].put(sh.i, flat, sh.s0 * k)
-        clock.mark("crc+fetch", "d2h")
 
-    with _Output(n) as output:
+    with _Output(n, rec) as output:
         for step in steps:  # every byte of the result is written, a share at a time
             for sh in step:
                 output.prefault(sh.s0 * k, min(sh.s1 * k, n))
         fetches = {j: _Fetch(output, cards[j], rows[j] * k, outs[j].shape[0]) for j in busy}
-        clock.mark("parse")
+        _mark(rec, "alloc")
+        crcs = {j: torch.zeros(len(own[j]), dtype=torch.int32, device=cards[j]) for j in busy}
+        ic_t = {j: _to_device(ic, cards[j]) for j in busy}
+        _mark(rec, "launch")
         for step in steps:
             _each(step, decode_share, fetch_share)
         for j in busy:
             fetches[j].drain()
         del fetches
-        clock.mark("crc+fetch", "copy")
-        if _crc_of(steps, crcs, n, k) != header.crc32:
+        ok = _crc_of(steps, crcs, n, k, rec) == header.crc32
+        _mark(rec, "check")
+        if not ok:
             raise InvalidInputError()
-        clock.mark("crc+fetch", "s3")
-        return output.result(n)
+        result = output.result(n)
+        _mark(rec, "check")
+        if rec is not None:
+            rec.done(n)
+        return result
 
 
 def encode_compact(data: bytes, cfg: int) -> bytes:

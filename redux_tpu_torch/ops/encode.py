@@ -140,7 +140,8 @@ def fused_selected(params: Parameters) -> bool:
 
 
 def encode_blocks_ranked(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                         params: Parameters, n_words: int, delta: int = 1):
+                         params: Parameters, n_words: int, delta: int = 1,
+                         init_total: int | None = None):
     """The production encode: K1 model values feed the K2 coder, or, when
     :func:`fused_selected`, the fused K4 alone (the same bytes).
 
@@ -148,9 +149,13 @@ def encode_blocks_ranked(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch
     negative: a pad lane), ``init_cum`` the int32 initial row.  Returns
     what :func:`encode_blocks` returns.  Parameters that K4 does not take
     go through K1 -> K2 whatever the variable says, as in the reference.
+    ``init_total`` is the row's last entry where the caller holds it on
+    the host; without it K2's total is read from ``init_cum``, which on a
+    card waits for the work queued before.
     """
     if fused_selected(params):
         return encode_blocks_fused(syms, lens, init_cum, params, n_words, delta)
-    init_total = int(init_cum[-1])  # read before K1 is queued: no wait on it
+    if init_total is None:
+        init_total = int(init_cum[-1])
     lo, hi = model_lohi(syms, lens, init_cum, params, delta)
     return encode_blocks(lo, hi, lens, init_total, params, n_words, delta)

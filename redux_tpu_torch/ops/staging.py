@@ -95,11 +95,14 @@ def gather_rows(buf: torch.Tensor, offs, lens, width: int, words: bool = False) 
     if b and _rows_outside(offs, lens, 4 * width if words else width, buf.shape[0]):
         raise InvalidInputError()
     if not kernel_device(dev):
+        if b and width:
+            _build.count_bus(h2d=offs.nbytes + lens.nbytes)  # the card's table
         return gather_rows_plain(buf, torch.from_numpy(offs), torch.from_numpy(lens), width, words)
     out = torch.empty(b, width, dtype=torch.int32 if words else torch.uint8, device=dev)
     if b and width:
         table = torch.empty(2, b, dtype=torch.int64, pin_memory=True)  # one upload of both
         table.numpy()[0], table.numpy()[1] = offs, lens
+        _build.count_bus(h2d=table.nbytes)
         table = table.to(dev, non_blocking=True)
         launch_gather_rows(buf, table[0], table[1], out, words)
         _build.count_launch("gather_rows", dev)
@@ -147,6 +150,7 @@ def splice_payload_plain(words: torch.Tensor, blocks: torch.Tensor, raw: torch.T
     checked).  Runs on the device of ``blocks``."""
     b, k = blocks.shape
     dev = blocks.device
+    _build.count_bus(h2d=raw.nbytes + wire.nbytes)  # the card's row table
     raw, wire = raw.to(dev), wire.to(dev, torch.int64)
     coded = words_to_bytes(words)
     width = max(k, coded.shape[1])
@@ -216,6 +220,7 @@ def splice_rows(raw: torch.Tensor, wire: torch.Tensor,
     each row's end in the payload ((B,) int64, the running sum of
     ``wire``) and its raw flag.  The lengths and flags go up as they are
     and the sum runs on the device: no host work a row, no wait."""
+    _build.count_bus(h2d=wire.nbytes + raw.nbytes)
     wire, raw = wire.to(device, non_blocking=True), raw.to(device, non_blocking=True)
     return torch.cumsum(wire, 0, dtype=torch.int64), raw
 
@@ -393,7 +398,9 @@ def crc32_device(u8: torch.Tensor, out: torch.Tensor | None = None) -> torch.Ten
 def _consts_on(dev: torch.device) -> torch.Tensor:
     """:func:`crc_consts` as int32 on ``dev``, uploaded once a device."""
     if dev not in _CONSTS:
-        _CONSTS[dev] = torch.from_numpy(crc_consts().view(np.int32)).to(dev)
+        consts = crc_consts()
+        _build.count_bus(h2d=consts.nbytes)
+        _CONSTS[dev] = torch.from_numpy(consts.view(np.int32)).to(dev)
     return _CONSTS[dev]
 
 

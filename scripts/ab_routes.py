@@ -15,8 +15,8 @@ file under ``build/`` that every process reads and that is deleted at the
 end), each verified byte for byte and each list's archive against the
 first list's: one for the wall clock, each card's peak device memory (the
 allocator's) each way and the host RSS at each call's end, one with
-``_timings`` for the host phases (each phase's mark waits for the cards,
-which serializes work that otherwise overlaps).  With ``--weak MIB``
+``_timings`` for the host phases and their parts (no mark waits for the
+cards).  With ``--weak MIB``
 each rep also times encode + decode of ``MIB x n`` MiB (the input's
 first bytes) over cards ``0 .. n-1`` for n = 1, 2, 4 as far as there are
 cards and input: weak scaling, with the efficiency ``t(1) / t(n)`` of the

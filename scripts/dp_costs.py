@@ -10,8 +10,8 @@ two or more), after two warm-up round trips:
 - ``wall``: the wall clock of ``api.encode`` and of ``api.decode``, each
   until every card of the list is done, the median of ``--reps`` calls
   (the input and the archive verified);
-- ``phases``: the ``_timings`` phases of one more call each way (each
-  mark waits for the cards);
+- ``phases``: the ``_timings`` phases and their parts of one more call
+  each way (host seconds; no mark waits for the cards);
 - ``kernels``: K1 (``model_lohi``), K2 (``encode_blocks``) and K3
   (``decode_blocks`` on its lanes sorted by coded length, as ``api``
   stages them) alone on blocks already on the card, at the lane count of

@@ -870,3 +870,54 @@ def test_device_lists_at_one_step_and_timed(cuda_device, which):
     assert api.decode(want, device=devices) == data
     assert api.decode(want, device=devices, _timings=t_dec) == data
     assert {"pass1", "pass2", "header"} <= set(t_enc) and "kernels" in t_dec
+
+
+@pytest.mark.cuda
+def test_recorded_calls_on_the_card(cuda_device, monkeypatch, tmp_path):
+    """4 MiB in eight shares each way, recorded: the bus bytes of each
+    call equal the bytes of its host <-> card copies in the profiler's
+    trace (the CUDA runtime's own count) and their closed form; with
+    ``torch.cuda.synchronize`` refused, the archive and the round trip of
+    an unrecorded call, every part marked (the pinned slots and their
+    waits too) and the spans tiling each call
+    (``tests/test_torch_recorder.py``)."""
+    import json
+
+    from redux_tpu_torch import api, testdata
+    from test_torch_recorder import PARTS, bus_bytes
+
+    data = testdata.mixed(4 << 20, 37)
+    k = api._default_block_size(len(data))
+    monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * k)
+    monkeypatch.setattr(api, "DEC_CHUNK_BYTES", 128 * k)
+    want = api.encode(data, device=cuda_device)
+    assert api.decode(want, device=cuda_device) == data
+    calls = {"enc": lambda t: api.encode(data, device=cuda_device, _timings=t),
+             "dec": lambda t: api.decode(want, device=cuda_device, _timings=t)}
+    counted, copied = {}, {}
+    for kind, call in calls.items():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call({})
+        rec = api.recorded_calls()[-1]
+        counted[kind] = (rec["h2d"], rec["d2h"])
+        prof.export_chrome_trace(str(tmp_path / f"{kind}.json"))
+        events = json.loads((tmp_path / f"{kind}.json").read_text())["traceEvents"]
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+        copied[kind] = tuple(sum(e["args"]["bytes"] for e in copies if way in e["name"])
+                             for way in ("HtoD", "DtoH"))
+    assert counted == copied
+    assert counted == bus_bytes(data, want, cuda_device, k, 128)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a recorded call synchronized the card")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    t_enc, t_dec = {}, {}
+    assert api.encode(data, device=cuda_device, _timings=t_enc) == want
+    rec_enc = api.recorded_calls()[-1]
+    assert api.decode(want, device=cuda_device, _timings=t_dec) == data
+    rec_dec = api.recorded_calls()[-1]
+    assert {s[1] for rec in (rec_enc, rec_dec) for s in rec["spans"]} == PARTS
+    for rec in (rec_enc, rec_dec):
+        spans = rec["spans"]
+        assert all(a[3] == b[2] for a, b in zip(spans, spans[1:]))

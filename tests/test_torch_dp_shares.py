@@ -69,8 +69,8 @@ def _record(monkeypatch):
     real_up, real_take = api._Upload.__init__, api._Upload.take
     real_fetch, real_put = api._Fetch.__init__, api._Fetch.put
 
-    def up_init(self, data, ranges, device):
-        real_up(self, data, ranges, device)
+    def up_init(self, data, ranges, device, *rest):
+        real_up(self, data, ranges, device, *rest)
         self.taken_bytes = []
         ups.append(self)
 
@@ -79,8 +79,8 @@ def _record(monkeypatch):
         self.taken_bytes.append(t.numpy().tobytes())
         return t
 
-    def fetch_init(self, out, device, slot_bytes, n_slots):
-        real_fetch(self, out, device, slot_bytes, n_slots)
+    def fetch_init(self, out, device, slot_bytes, n_slots, *rest):
+        real_fetch(self, out, device, slot_bytes, n_slots, *rest)
         self.puts = []
         fetches.append(self)
 

@@ -133,7 +133,7 @@ def test_nine_lane_chunks_each_way(monkeypatch):
     timings = {}
     nine = api.encode(data, block_size=k, device="cpu", _timings=timings)
     assert enc_calls == [128] * 8 + [16]
-    assert set(timings) == {"pass1", "pass2", "header"}
+    assert {key.split(" ", 1)[0] for key in timings} == {"pass1", "pass2", "header"}
     assert nine == one_chunk == ref_api.encode(data, block_size=k)
     header, _ = container.parse_archive(nine)
     assert header.n_blocks == 1040 and 40 <= sum(header.block_raw) < 1040

@@ -600,13 +600,13 @@ def test_multi_chunk_encode_equals_the_reference(params, delta, k, monkeypatch):
     timings = {}
     arch = api.encode(data, params=params, device="cpu", _timings=timings, **kw)
     assert arch == one == ref
-    assert set(timings) == {"pass1", "pass2", "header"}
+    assert {key.split(" ", 1)[0] for key in timings} == {"pass1", "pass2", "header"}
     header, _ = container.parse_archive(arch, with_streams=False)
     assert 25 <= sum(header.block_raw) < 300
     timings = {}
     assert api.decode(arch, device="cpu", _timings=timings) == data
-    assert set(timings) == {"parse", "upload", "kernels", "crc+fetch", "crc+fetch s3",
-                            "crc+fetch d2h", "crc+fetch copy"}
+    assert {key.split(" ", 1)[0] for key in timings} == {"parse", "upload", "kernels",
+                                                         "crc+fetch"}
     # Each range of 128 blocks gathers its raw blocks' bytes, then its
     # coded blocks' words (K3's input).
     raw = np.asarray(header.block_raw)
