@@ -42,8 +42,8 @@ SIGNATURES = {
     # tfreeze, delta, code_bits, fits53, device, stream
     "rxt_encode_blocks": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # words, lens, init_cum, out, B, W, k, delta, freq_max, code_bits,
-    # fits53, device, stream
-    "rxt_decode_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # fits53, warp, device, stream
+    "rxt_decode_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # syms, lens, init_cum, words, byte_lens, ovf, B, K, n_words, delta,
     # freq_max, code_bits, device, stream (K4 and K5 take the same)
     "rxt_encode_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -59,6 +59,7 @@ SIGNATURES = {
 _lib = None
 _lock = threading.Lock()
 card_launches: collections.Counter = collections.Counter()  # (kernel, device index) -> launches
+route_blocks: collections.Counter = collections.Counter()  # (K3 route, device index) -> blocks
 bus_bytes: collections.Counter = collections.Counter()  # "h2d" / "d2h" -> bytes over the bus
 
 
@@ -189,6 +190,13 @@ def count_launch(kernel: str, device: torch.device) -> None:
     which ``redux_tpu_torch.launch_counts`` reads: each wrapper calls it
     where it launches its kernel, and nowhere else."""
     card_launches[kernel, device.index or 0] += 1
+
+
+def count_blocks(route: str, device: torch.device, n: int) -> None:
+    """``n`` blocks decoded by K3's ``route`` (``"warp"`` or ``"thread"``)
+    on ``device`` into :data:`route_blocks`, which ``api``'s recorder
+    reads: K3's wrapper calls it beside its :func:`count_launch`."""
+    route_blocks[route, device.index or 0] += n
 
 
 def count_bus(h2d: int = 0, d2h: int = 0) -> None:

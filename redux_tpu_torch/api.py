@@ -287,8 +287,10 @@ def recorded_calls() -> list[dict]:
     Each is a dict: ``id`` (in call order), ``kind`` (``"enc"`` or
     ``"dec"``), ``bytes_in`` and ``bytes_out`` (the call's argument and
     result), ``cards`` (its devices), ``spans`` (``(phase, part,
-    start_ns, end_ns)`` a mark) and ``h2d`` and ``d2h`` (bytes the call
-    copied to and from its devices, ``_build.bus_bytes`` over the call)."""
+    start_ns, end_ns)`` a mark), ``h2d`` and ``d2h`` (bytes the call
+    copied to and from its devices, ``_build.bus_bytes`` over the call) and
+    ``warp_blocks`` and ``thread_blocks`` (the blocks K3 decoded on each
+    route on the call's devices, ``_build.route_blocks`` over the call)."""
     return list(_records)
 
 
@@ -306,14 +308,17 @@ class _Recorder:
     ``torch.profiler`` stamps its host events with.  The bytes are what
     the copies count into ``_build.bus_bytes`` from the recorder's start
     until the call has its result and hands its record to
-    :func:`recorded_calls` (:meth:`done`)."""
+    :func:`recorded_calls` (:meth:`done`), and so are the blocks K3
+    decodes a route on the call's devices (``_build.route_blocks``)."""
 
     def __init__(self, timings: dict, kind: str, nbytes: int, cards: Sequence[torch.device]):
         self.tt, self.kind, self.bytes_in = timings, kind, nbytes
         self.cards = [str(d) for d in cards]
+        self.indices = {d.index or 0 for d in cards if d.type == "cuda"}
         self.phase = ""
         self.spans = []
         self.bus0 = _build.bus_bytes.copy()
+        self.blocks0 = _build.route_blocks.copy()
         self.t0 = time.time_ns()
 
     def mark(self, part: str) -> None:
@@ -327,8 +332,11 @@ class _Recorder:
     def done(self, nbytes: int) -> None:
         """The call returns ``nbytes``: its record into :func:`recorded_calls`."""
         bus = {way: _build.bus_bytes[way] - self.bus0[way] for way in ("h2d", "d2h")}
+        blocks = {f"{route}_blocks": sum(_build.route_blocks[route, i] - self.blocks0[route, i]
+                                         for i in self.indices) for route in ("warp", "thread")}
         _records.append(dict(id=next(_call_ids), kind=self.kind, bytes_in=self.bytes_in,
-                             bytes_out=nbytes, cards=self.cards, spans=self.spans, **bus))
+                             bytes_out=nbytes, cards=self.cards, spans=self.spans, **bus,
+                             **blocks))
 
 
 def _phase(rec: Optional[_Recorder], phase: str) -> None:

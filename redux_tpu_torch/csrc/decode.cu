@@ -39,6 +39,39 @@
 // What bounds it: one thread's dependent chain a symbol (the value
 // division, 3 rounds of the descent, the narrowing quotients, the renorm):
 // latency, with about one warp a scheduler at 16384 blocks.
+//
+// A launch of few blocks (rxt_decode_blocks' `warp`, chosen by the caller
+// from B and the card's SM count) takes the warp route instead, an
+// overload of decode_kernel: one warp decodes one block, a CTA a block, so
+// a launch of 6-188 blocks puts a warp on as many schedulers and the chain
+// of a symbol, not the card's throughput, sets its time.  Per symbol:
+// - the model is in registers: lane l holds cdf[8l .. 8l+7] and cdf[8l+8]
+//   (lane l+1's first; lane 31's is cdf[256]); count = cdf[257] is held
+//   the same in every lane;
+// - no division before the search: cdf[i] <= floor(a / range) exactly when
+//   cdf[i] * range <= a, for a = (z+1)*count - 1, and the clamp
+//   min(value, count - 1) is the test cdf[i] != count, so each lane
+//   compares its products with a (under 2^63 at (8,30,32));
+// - a ballot of "my first entry qualifies" names the owning lane, the
+//   highest set bit; the qualifying entries are a prefix of the row, so
+//   each lane's pick is its last qualifying entry (its first if none),
+//   taken by a tree of selects;
+// - every lane narrows over its own pick while the ballot runs (narrow():
+//   the quotient from the double reciprocal of count, one fused
+//   multiply-add and one integer test, exact in both instantiations), and
+//   three shuffles from the owning lane bring i, dlo and dhi - 1 to the
+//   warp;
+// - low, high, z and the bit reader are the same in every lane (broadcast
+//   loads of the block's row), with the thread route's closed-form renorm
+//   on 32 bits (renorm32);
+// - the +delta update is 9 predicated adds a lane while count < freq_max;
+// - lane j keeps the symbol at position t0 + j of each 32, and the warp
+//   stores the 32 bytes at once.
+// At 1-512 blocks a launch takes about 1.07 ms at k = 4096 against the
+// thread route's 2.5 (tpu_wide) and 4.3 ((8,30,32)); it issues about 230
+// warp instructions a symbol, so each warp a scheduler past the first adds
+// about 0.6 ms, and past three the thread route is the cheaper at tpu_wide
+// (ops/decode.py).
 #include "common.cuh"
 
 namespace {
@@ -193,18 +226,174 @@ decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ le
   }
 }
 
+// floor(c * range / count) for c <= count (the narrowing quotients of the
+// warp route), from rr = range * (1/count) in double: c * rr is within
+// 2^-52 of the quotient relative, and the quotient is at most range <=
+// 2^32, so within 2^-20.  One fused multiply-add rounds c * rr + 2^52 to
+// the nearest integer, which is the quotient or one above: its low 52 bits
+// are q, and one integer test against p = c * range (< 2^63) takes one
+// off.  No conversion to an integer, no branch.
+__device__ __forceinline__ uint64_t narrow(uint64_t p, uint32_t c, uint32_t count, double rr) {
+  const double qd = __fma_rn(static_cast<double>(c), rr, 4503599627370496.0);  // + 2^52
+  uint64_t q = static_cast<uint64_t>(__double_as_longlong(qd)) & ((1ull << 52) - 1);
+  q -= q * count > p ? 1 : 0;
+  return q;
+}
+
+// The position of x's highest set bit (x != 0): 31 - __clz(x) in one step.
+__device__ __forceinline__ int top_bit(uint32_t x) {
+  int b;
+  asm("bfind.u32 %0, %1;" : "=r"(b) : "r"(x));
+  return b;
+}
+
+// rxt::renorm of an interval held in 32 bits (cb <= 32): low, high <
+// 2^cb, or high = low - 1 mod 2^32 after an empty interval, where
+// rxt::renorm's u64 high is low - 1 mod 2^64 (both give the same n1, and
+// n1 = 0 where they differ).  A shift by n1 = 32 gives 0, as in u64.
+__device__ __forceinline__ rxt::Renorm renorm32(uint32_t& low, uint32_t& high, int cb) {
+  const uint32_t cmax = 0xFFFFFFFFu >> (32 - cb);
+  int n1 = __clz(low ^ high) - (32 - cb);
+  n1 = n1 < 0 ? 0 : n1;
+  const uint32_t low1 = __funnelshift_lc(0u, low, n1) & cmax;  // low << n1
+  const uint32_t high1 = (__funnelshift_lc(0u, high, n1) | (__funnelshift_lc(0u, 1u, n1) - 1)) & cmax;
+  const int a = __clz(~(low1 << (33 - cb)));
+  const int b = __clz(high1 << (33 - cb));
+  int n3 = a < b ? a : b;
+  n3 = n3 < cb - 1 ? n3 : cb - 1;
+  low = (low1 << n3) & (cmax >> 1);
+  high = (((high1 << n3) | ((1u << n3) - 1)) & (cmax >> 1)) | (1u << (cb - 1));
+  return {n1, n3};
+}
+
+constexpr int kLaneRow = 8;  // the warp route's row entries a lane owns
+
+// The warp route: block blockIdx.x, decoded by the one warp of its CTA.
+// A symbol's steps hold no branch but the bit reader's refill: the freeze
+// is a predicate, and count and its reciprocal follow from the position
+// alone (K2's rxt::Count): count_t = init + delta * min(t, tfreeze), lane
+// j takes 1/count for position t0 + j of each 32, and each symbol
+// shuffles in the next one's.  low, high and z are held in 32 bits (cb <=
+// 32), and so are the shuffled dlo and dhi - 1: mod 2^32 they give the
+// thread route's u64 bounds, and dlo < 2^32 as cdf[sym] < count (only a
+// row with cdf[0] > 0 and no qualifying entry could give 2^32).  Two
+// symbols an iteration let the compiler overlap one's tail with the
+// next one's head.
+__global__ void __launch_bounds__(32)
+decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lens,
+              const int32_t* __restrict__ init_cum, uint8_t* __restrict__ out, int W, int k,
+              int delta, int freq_max, int cb) {
+  const int lane = threadIdx.x;
+  const int blk = blockIdx.x;
+  uint32_t c[kLaneRow + 1];
+#pragma unroll
+  for (int j = 0; j <= kLaneRow; ++j) c[j] = init_cum[kLaneRow * lane + j];
+  const int init_total = init_cum[kNodes];
+  const int tfreeze = rxt::freeze_point(init_total, freq_max, delta);
+  const uint32_t cmax = 0xFFFFFFFFu >> (32 - cb);
+  const uint32_t* row = words + static_cast<size_t>(blk) * W;
+  // The bit reader, the same in every lane: nb bits left-aligned in buf,
+  // `ahead` the next word (row[next]), zeros past the row.
+  uint64_t buf = 0;
+  int nb = 0, next = 0;
+  uint32_t ahead = W > 0 ? row[0] : 0u;
+  auto get = [&](int n) -> uint32_t {  // n <= 32
+    const bool refill = nb < n;
+    buf |= refill ? static_cast<uint64_t>(ahead) << (32 - nb) : 0;
+    nb += refill ? 32 : 0;
+    next += refill ? 1 : 0;
+    if (refill) ahead = next < W ? row[next] : 0u;
+    const uint64_t v = (buf >> (63 - n)) >> 1;  // 0 for n = 0
+    buf <<= n;
+    nb -= n;
+    return static_cast<uint32_t>(v);
+  };
+  uint32_t low = 0, high = cmax;
+  uint32_t z = get(cb);
+  int len = lens[blk];
+  len = len > k ? k : len;
+  uint8_t* orow = out + static_cast<size_t>(blk) * k;
+  for (int t0 = 0; t0 < k; t0 += 32) {
+    const int tl = t0 + lane;
+    const double rc_lane = __drcp_rn(static_cast<double>(
+        init_total + delta * (tl < tfreeze ? tl : tfreeze)));  // 1/count at t0 + lane
+    double rc = __shfl_sync(rxt::kFull, rc_lane, 0);
+    uint32_t mine = 0;  // the symbol at t0 + lane
+#pragma unroll 2
+    for (int j = 0; j < 32 && t0 + j < len; ++j) {  // the same trip count on every lane
+      const int t = t0 + j;
+      const bool upd = t < tfreeze;  // count < freq_max
+      const uint32_t count = init_total + delta * (upd ? t : tfreeze);
+      const double rc_next = __shfl_sync(rxt::kFull, rc_lane, (j + 1) & 31);  // a symbol ahead
+      const uint32_t rm1 = high - low;  // range - 1, range <= 2^32
+      const double rr = __fma_rn(static_cast<double>(rm1), rc, rc);  // range * rc, rounded once
+      // cdf[e] <= value = min(floor(a / range), count - 1) exactly when
+      // cdf[e] * range <= a and cdf[e] < count; x * range is computed as
+      // x * (range - 1) + x, one wide multiply-add.
+      const uint64_t a = static_cast<uint64_t>(count) * z + count - 1;
+      bool q[kLaneRow + 1];
+#pragma unroll
+      for (int e = 0; e <= kLaneRow; ++e) {
+        q[e] = static_cast<uint64_t>(c[e]) * rm1 + c[e] <= a && c[e] != count;
+      }
+      // The lane's pick: i = its last qualifying entry (0 if none), a tree
+      // of selects over the monotone q; lo = cdf[i], hi = cdf[i + 1].
+      const int i01 = q[1] ? 1 : 0, i23 = q[3] ? 3 : 2, i45 = q[5] ? 5 : 4, i67 = q[7] ? 7 : 6;
+      const uint32_t l01 = q[1] ? c[1] : c[0], l23 = q[3] ? c[3] : c[2];
+      const uint32_t l45 = q[5] ? c[5] : c[4], l67 = q[7] ? c[7] : c[6];
+      const uint32_t h01 = q[1] ? c[2] : c[1], h23 = q[3] ? c[4] : c[3];
+      const uint32_t h45 = q[5] ? c[6] : c[5], h67 = q[7] ? c[8] : c[7];
+      const int i03 = q[2] ? i23 : i01, i47 = q[6] ? i67 : i45;
+      const uint32_t l03 = q[2] ? l23 : l01, l47 = q[6] ? l67 : l45;
+      const uint32_t h03 = q[2] ? h23 : h01, h47 = q[6] ? h67 : h45;
+      const int i07 = q[4] ? i47 : i03;
+      const uint32_t l07 = q[4] ? l47 : l03, h07 = q[4] ? h47 : h03;
+      const uint32_t i = q[8] ? 8 : i07;
+      const uint32_t lo = q[8] ? c[8] : l07, hi = q[8] ? count : h07;
+      const uint64_t dlo = narrow(static_cast<uint64_t>(lo) * rm1 + lo, lo, count, rr);
+      const uint64_t dhi = narrow(static_cast<uint64_t>(hi) * rm1 + hi, hi, count, rr);
+      const unsigned own = __ballot_sync(rxt::kFull, q[0]);
+      const int src = top_bit(own | 1u);  // lane 0 where no entry qualifies
+      const uint32_t dl = __shfl_sync(rxt::kFull, static_cast<uint32_t>(dlo), src);
+      const uint32_t dhm1 = __shfl_sync(rxt::kFull, static_cast<uint32_t>(dhi - 1), src);
+      const uint32_t sym = kLaneRow * src + __shfl_sync(rxt::kFull, i, src);
+      high = low + dhm1;
+      low += dl;
+      const rxt::Renorm rn = renorm32(low, high, cb);
+      int nbits = rn.n1 + rn.n3;
+      nbits = nbits < cb ? nbits : cb;  // n1 + n3 <= code_bits on a valid stream
+      z = static_cast<uint32_t>((static_cast<uint64_t>(z - dl) << nbits) | get(nbits)) & cmax;
+      const int d = static_cast<int>(sym) - kLaneRow * lane;
+      const uint32_t dd = upd ? delta : 0;
+#pragma unroll
+      for (int e = 0; e <= kLaneRow; ++e) {
+        if (e > d) c[e] += dd;
+      }
+      mine = j == lane ? sym : mine;
+      rc = rc_next;
+    }
+    if (t0 + lane < k) orow[t0 + lane] = static_cast<uint8_t>(mine);
+  }
+}
+
 }  // namespace
 
 RXT_API int rxt_decode_blocks(const void* words, const void* lens, const void* init_cum,
                               void* out, int B, int W, int k, int delta, int freq_max,
-                              int code_bits, int fits53, int device, void* stream) {
+                              int code_bits, int fits53, int warp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int grid = (B + kThreads - 1) / kThreads;
-  auto kernel = fits53 ? decode_kernel<true> : decode_kernel<false>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const int32_t*>(lens),
-      static_cast<const int32_t*>(init_cum), static_cast<uint8_t*>(out), B, W, k, delta,
-      freq_max, code_bits);
+  const auto w = static_cast<const uint32_t*>(words);
+  const auto l = static_cast<const int32_t*>(lens);
+  const auto ic = static_cast<const int32_t*>(init_cum);
+  const auto o = static_cast<uint8_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (warp) {
+    decode_kernel<<<B, 32, 0, s>>>(w, l, ic, o, W, k, delta, freq_max, code_bits);
+  } else {
+    const int grid = (B + kThreads - 1) / kThreads;
+    auto kernel = fits53 ? decode_kernel<true> : decode_kernel<false>;
+    kernel<<<grid, kThreads, 0, s>>>(w, l, ic, o, B, W, k, delta, freq_max, code_bits);
+  }
   return cudaGetLastError();
 }

@@ -12,14 +12,22 @@ with ``low``), closed-form renormalisation, and ``n1 + n3`` more bits read
 MSB-first (reads past the end of a row give zero bits).  Words are staged
 block-major ``(B, W)``.
 
-The kernel has two instantiations, chosen by
-:func:`~redux_tpu_torch.ops.coder.products_fit_53`:
-quotients from a double reciprocal with a one-step integer correction
-where every dividend stays below ``2**53`` (tpu_wide, tpu32), native u64
-divisions otherwise (the reference CLI's (8,30,32)).
+The kernel has two routes, chosen by the launch's block count ``B``
+(:func:`warp_route_max`).  The thread route (one thread a block, the
+model a Fenwick tree in shared memory: the cheapest model a block-symbol,
+for throughput over many blocks) has two instantiations, chosen by
+:func:`~redux_tpu_torch.ops.coder.products_fit_53`: quotients from a
+double reciprocal with a one-step integer correction where every
+dividend stays below ``2**53`` (tpu_wide, tpu32), native u64 divisions
+otherwise (the reference CLI's (8,30,32)).  The warp route (one warp a
+block, the row in registers, no division before the symbol search: the
+shortest chain a symbol, for launches of few blocks) takes reciprocal
+quotients in both, exact because its quotients are at most ``2**32``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -83,15 +91,33 @@ def decode_blocks_plain(words: torch.Tensor, lens: torch.Tensor, init_cum: torch
     return out
 
 
+# The warp route's blocks an SM at most: three warps a scheduler.  Its
+# launch takes about 0.6 ms more for each warp a scheduler past the first
+# (1.07 ms up to 512 blocks, 2.17 at 1536, 2.82 at 1792, on 132 SMs),
+# against the thread route's 2.5-2.6 ms at tpu_wide (4.3-4.4 at (8,30,32)).
+WARP_BLOCKS_PER_SM = 12
+
+
+@functools.lru_cache(maxsize=None)
+def warp_route_max(device: torch.device) -> int:
+    """The most blocks a K3 launch on ``device`` (a CUDA device) decodes on
+    the warp route: :data:`WARP_BLOCKS_PER_SM` times its SM count."""
+    return WARP_BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def decode_blocks(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
-                  params: Parameters, k: int, delta: int = 1) -> torch.Tensor:
+                  params: Parameters, k: int, delta: int = 1, *,
+                  _route: str | None = None) -> torch.Tensor:
     """Decode ``B`` blocks of ``k`` symbols at most.
 
     Args: ``(B, W)`` int32 (or uint32) big-endian words, zero-padded past
     each stream; ``(B,)`` int32 symbol counts (0 for no stream); the
     ``(symbol_count + 1,)`` int32 initial row.  Returns ``(B, k)`` uint8,
     zero past each block's count.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel on the current stream.
+    CUDA tensors launch the kernel on the current stream, on the warp
+    route where ``B <= warp_route_max(device)``, else the thread route
+    (``_route``, ``"warp"`` or ``"thread"``, forces one: for the tests and
+    the kernel A/B alone).  The blocks count into ``_build.route_blocks``.
     """
     dev = words.device
     if words.dtype == torch.uint32:
@@ -104,17 +130,21 @@ def decode_blocks(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tenso
     if params.symbol_bits != 8 or not 1 <= delta <= 255 or k < 0:
         raise ValueError("decode_blocks takes symbol_bits 8, delta in 1..255, k >= 0")
     k, delta = int(k), int(delta)
+    if _route not in (None, "warp", "thread"):
+        raise ValueError(f"decode_blocks: no route {_route!r}")
     if not kernel_device(dev):
         return decode_blocks_plain(words, lens, init_cum, params, k, delta)
     out = torch.empty(b, k, dtype=torch.uint8, device=dev)
     if b == 0 or k == 0:
         return out
+    route = _route or ("warp" if b <= warp_route_max(dev) else "thread")
     lib = _build.lib()
     err = lib.rxt_decode_blocks(
         words.data_ptr(), lens.data_ptr(), init_cum.data_ptr(), out.data_ptr(), b, w, k,
-        delta, params.freq_max, params.code_bits, int(products_fit_53(params)), dev.index or 0,
-        _build.stream_of(dev),
+        delta, params.freq_max, params.code_bits, int(products_fit_53(params)),
+        int(route == "warp"), dev.index or 0, _build.stream_of(dev),
     )
     _build.check(err, "rxt_decode_blocks")
     _build.count_launch("decode", dev)
+    _build.count_blocks(route, dev, b)
     return out

@@ -29,6 +29,19 @@ and the CRC); every checkout's digests must equal the first one's (the
 same bytes).  Then per checkout the median time of each kernel at each
 shape, in milliseconds.  Compare versions only within one call: cards and
 hosts differ between calls.
+
+    python3 scripts/ab_kernels.py DIR [DIR ...] --routes [--blocks 1,188] [--reps 5]
+
+times K3's two routes instead (``decode_blocks``' private ``_route``; a
+checkout without it times its one route as ``thread``): at each block
+count B of ``--blocks`` (:data:`ROUTE_BLOCKS` by default), the first B
+blocks of ``cuda_checks.phase3_data`` (4096 bytes, seed 7) coded by K1 ->
+K2 and staged sorted by coded length as ``api.decode`` stages them, in
+both instantiations
+(tpu_wide and the reference CLI's (8,30,32), delta 16, the prior).  The
+two routes' symbols must be equal.  Then per checkout the median ms of
+each route at each B, and the crossover: the least B at which the thread
+route is faster.
 """
 
 from __future__ import annotations
@@ -44,6 +57,8 @@ from pathlib import Path
 
 SHAPES = ("1024x4096", "16384x4096", "65536x4096")
 STAGING = ("gather_rows", "splice_payload", "crc32")
+ROUTE_BLOCKS = (1, 6, 48, 188, 512, 1024, 2048, 3072, 4096, 8192, 16384)
+ROUTE_PARAMS = {"tpu_wide": (8, 20, 22), "ref30": (8, 30, 32)}
 
 
 def device_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -160,14 +175,79 @@ def worker(root: Path, reps: int) -> None:
                       "ptxas": _build.resource_usage(), "ms": times, "digests": digests}))
 
 
+def route_worker(root: Path, reps: int, blocks: tuple) -> None:
+    """K3's routes at each B of ``blocks`` (module docstring)."""
+    sys.path.insert(0, str(root))
+    import inspect
+
+    import torch
+
+    import redux_tpu_torch
+    from redux_tpu_torch import _build, cuda_checks
+    from redux_tpu_torch.ops.decode import decode_blocks
+    from redux_tpu_torch.ops.encode import encode_blocks
+    from redux_tpu_torch.ops.model import model_lohi
+    from redux_tpu_torch.params import Parameters
+
+    if not Path(redux_tpu_torch.__file__).resolve().is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported {redux_tpu_torch.__file__}, not the one under {root}")
+    dev = torch.device("cuda", 0)
+    _build.lib()
+    routes = ("warp", "thread") if "_route" in inspect.signature(decode_blocks).parameters else (
+        None,)
+    delta, k, n = 16, 4096, max(blocks)
+    data = cuda_checks.phase3_data(n, k, 7)
+    times, digests = {}, {}
+    for name, cfg in ROUTE_PARAMS.items():
+        params = Parameters(*cfg)
+        x = cuda_checks.KernelInputs(data, params, delta, k, dev)
+        lo, hi = model_lohi(x.syms, x.lens, x.init_cum, params, delta)
+        words, bl, ovf = encode_blocks(lo, hi, x.lens, x.init_total, params, x.n_words, delta)
+        del lo, hi
+        raw = ovf | (bl >= x.lens)
+        wire = torch.where(raw, 0, bl)
+        klens_all = torch.where(raw, 0, x.lens).to(torch.int32)
+        padded = torch.nn.functional.pad(words, (0, 2))
+        for b in blocks:
+            order = torch.argsort(wire[:b], stable=True)
+            dec = (padded[:b][order].contiguous(), klens_all[:b][order].contiguous(), x.init_cum,
+                   params, k, delta)
+            outs = {}
+            for route in routes:
+                kw = {} if route is None else {"_route": route}
+                outs[route or "thread"] = (device_ms(lambda: decode_blocks(*dec, **kw), reps),
+                                           decode_blocks(*dec, **kw))
+            syms = [o for _, o in outs.values()]
+            if any(not torch.equal(syms[0], o) for o in syms[1:]):
+                raise AssertionError(f"{name} B={b}: the routes' symbols differ")
+            times[f"{name}/{b}"] = {r: ms for r, (ms, _) in outs.items()}
+            digests[f"{name}/{b}"] = hashlib.sha256(syms[0].cpu().numpy().tobytes()).hexdigest()[:16]
+    print(json.dumps({"root": str(root), "device": torch.cuda.get_device_name(0),
+                      "ptxas": _build.resource_usage(), "ms": times, "digests": digests}))
+
+
+def crossover(med: dict, name: str, blocks: tuple):
+    """The least B of ``blocks`` at which the thread route beats the warp
+    route in ``med`` (None if it never does)."""
+    return next((b for b in blocks
+                 if med[f"{name}/{b}"].get("warp", 0) > med[f"{name}/{b}"]["thread"]), None)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("dirs", type=Path, nargs="+")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--routes", action="store_true", help="time K3's two routes over B")
+    ap.add_argument("--blocks", default=",".join(map(str, ROUTE_BLOCKS)),
+                    help="the block counts of --routes, comma-separated")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    blocks = tuple(int(b) for b in args.blocks.split(","))
     if args.worker:
-        worker(args.dirs[0], args.reps)
+        if args.routes:
+            route_worker(args.dirs[0], args.reps, blocks)
+        else:
+            worker(args.dirs[0], args.reps)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip())
@@ -175,7 +255,9 @@ def main() -> int:
     first = None
     for d in [*args.dirs, *reversed(args.dirs)]:
         out = subprocess.run([sys.executable, __file__, str(d), "--worker", "--reps",
-                              str(args.reps)], check=True, capture_output=True, text=True).stdout
+                              str(args.reps), *(["--routes", "--blocks", args.blocks]
+                                                if args.routes else [])],
+                             check=True, capture_output=True, text=True).stdout
         res = json.loads(out.strip().splitlines()[-1])
         print(json.dumps({k: res[k] for k in ("root", "ptxas", "ms")}))
         first = first or res["digests"]
@@ -184,8 +266,11 @@ def main() -> int:
         runs[d].append(res["ms"])
     for d, rs in runs.items():
         med = {s: {name: round(statistics.median(r[s][name] for r in rs), 4) for name in rs[0][s]}
-               for s in SHAPES}
+               for s in rs[0]}
         print(f"median {d} ({len(rs)} runs): {json.dumps(med)}")
+        if args.routes:
+            print(f"crossover {d}: "
+                  + json.dumps({n: crossover(med, n, blocks) for n in ROUTE_PARAMS}))
     print("outputs equal in every run")
     return 0
 

@@ -921,3 +921,88 @@ def test_recorded_calls_on_the_card(cuda_device, monkeypatch, tmp_path):
     for rec in (rec_enc, rec_dec):
         spans = rec["spans"]
         assert all(a[3] == b[2] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.fixture(scope="module")
+def route_inputs():
+    """16,384 blocks of ``cuda_checks.phase3_data`` (4096 bytes, seed 23)
+    coded by K1 -> K2 in both instantiations, with their plain decode:
+    per configuration ``(params, words, klens, init_cum, plain)``, the
+    words padded by two zero words and blocks stored raw given length 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from redux_tpu_torch import cuda_checks
+    from redux_tpu_torch.ops.decode import decode_blocks_plain
+    from redux_tpu_torch.ops.encode import encode_blocks
+    from redux_tpu_torch.ops.model import model_lohi
+    from redux_tpu_torch.params import Parameters
+
+    dev, k, delta = torch.device("cuda", 0), 4096, 16
+    data = cuda_checks.phase3_data(16384, k, 23)
+    out = {}
+    for cfg in ((8, 20, 22), (8, 30, 32)):
+        params = Parameters(*cfg)
+        x = cuda_checks.KernelInputs(data, params, delta, k, dev)
+        lo, hi = model_lohi(x.syms, x.lens, x.init_cum, params, delta)
+        words, bl, ovf = encode_blocks(lo, hi, x.lens, x.init_total, params, x.n_words, delta)
+        del lo, hi
+        klens = torch.where(ovf | (bl >= x.lens), 0, x.lens).to(torch.int32)
+        words = torch.nn.functional.pad(words, (0, 2)).contiguous()
+        plain = decode_blocks_plain(words, klens, x.init_cum, params, k, delta)
+        assert torch.equal(plain[klens > 0], x.syms[klens > 0])
+        out[cfg] = (params, words, klens, x.init_cum, plain)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [(8, 20, 22), (8, 30, 32)])
+@pytest.mark.parametrize("at", ["1", "6", "188", "threshold", "threshold+1", "16384"])
+def test_decoder_routes_agree(cuda_device, route_inputs, cfg, at):
+    """K3's warp and thread routes, each forced, decode the first B blocks
+    to the plain version's symbols, in both instantiations; the default
+    takes the warp route up to ``warp_route_max`` blocks and the thread
+    route past it; ``_build.route_blocks`` counts each launch's blocks
+    under its route and card, and ``launch_counts`` one launch a call."""
+    import redux_tpu_torch
+    from redux_tpu_torch import _build
+    from redux_tpu_torch.ops.decode import decode_blocks, warp_route_max
+
+    params, words, klens, ic, plain = route_inputs[cfg]
+    thr = warp_route_max(cuda_device)
+    b = {"threshold": thr, "threshold+1": thr + 1}.get(at) or int(at)
+    args = (words[:b], klens[:b], ic, params, 4096, 16)
+    for route in ("warp", "thread", None):
+        before = _build.route_blocks.copy()
+        redux_tpu_torch.reset_launch_counts()
+        got = decode_blocks(*args, _route=route)
+        assert torch.equal(got, plain[:b]), route
+        assert redux_tpu_torch.launch_counts(cuda_device)["decode"] == 1
+        taken = route or ("warp" if b <= thr else "thread")
+        after = _build.route_blocks - before
+        assert dict(after) == {(taken, cuda_device.index): b}, route
+
+
+@pytest.mark.cuda
+def test_calgary_sized_files_take_the_warp_route(cuda_device):
+    """A round trip of a Calgary-sized input (768,771 bytes, book1's size:
+    188 blocks of 4096) through ``api``: every coded block is decoded on
+    the warp route, and the recorded call says so; 16,384 + 1 blocks take
+    the thread route."""
+    from redux_tpu_torch import api, testdata
+    from redux_tpu_torch.ops.decode import warp_route_max
+
+    data = testdata.text_like(768_771, 31)
+    arch = api.encode(data, device=cuda_device)
+    header = api.container.parse_table(arch)
+    coded = int((~api._decode_lanes(header).raw).sum())
+    assert header.n_blocks == 188 and coded > 0
+    assert api.decode(arch, device=cuda_device, _timings={}) == data
+    rec = api.recorded_calls()[-1]
+    assert (rec["warp_blocks"], rec["thread_blocks"]) == (coded, 0)
+    big = testdata.text_like(16384 * 4096 + 1, 32)
+    arch = api.encode(big, block_size=4096, device=cuda_device)
+    assert api.decode(arch, device=cuda_device, _timings={}) == big
+    rec = api.recorded_calls()[-1]
+    coded = int((~api._decode_lanes(api.container.parse_table(arch)).raw).sum())
+    assert coded > warp_route_max(cuda_device)
+    assert (rec["warp_blocks"], rec["thread_blocks"]) == (0, coded)

@@ -206,7 +206,8 @@ def test_reciprocal_quotient_is_exact(cfg):
 def test_products_fit_53_routes_the_instantiations(monkeypatch):
     """The wrapper's 53-bit test: tpu_wide and tpu32 take the reciprocal
     instantiation, the reference CLI's (8,30,32) the u64 one; the flag is
-    what decode_blocks passes to the kernel."""
+    what decode_blocks passes to the kernel (on the thread route, the one
+    with two instantiations: the card's warp route made empty here)."""
     from redux_tpu_torch import _build
     from redux_tpu_torch.ops import decode as dec
 
@@ -223,7 +224,9 @@ def test_products_fit_53_routes_the_instantiations(monkeypatch):
             return 0
 
     monkeypatch.setattr(dec, "kernel_device", lambda dev: True)
+    monkeypatch.setattr(dec, "warp_route_max", lambda dev: 0)
     monkeypatch.setattr(_build, "card_launches", type(_build.card_launches)())
+    monkeypatch.setattr(_build, "route_blocks", type(_build.route_blocks)())
     monkeypatch.setattr(_build, "lib", lambda: FakeLib())
     monkeypatch.setattr(_build, "stream_of", lambda dev: 0)
     words = torch.zeros(2, 4, dtype=torch.int32)
@@ -233,7 +236,7 @@ def test_products_fit_53_routes_the_instantiations(monkeypatch):
         ic = torch.from_numpy(uniform_init_cum(RefParameters(params.symbol_bits, params.freq_bits,
                                                              params.code_bits)).astype(np.int32))
         decode_blocks(words, lens, ic, params, 8, 16)
-        assert seen[-1][10] == fits, params
+        assert seen[-1][10] == fits and seen[-1][11] == 0, params
 
 
 def _decode_block_emulated(words, n_sym, ic, p, delta):

@@ -200,6 +200,24 @@ def test_an_unrecorded_call_records_nothing(chunked, monkeypatch):
     assert api._records.maxlen == api.RECORDED_CALLS >= 4096
 
 
+@pytest.mark.parametrize("cards", [["cuda:1"], ["cuda:0", "cuda:1"], ["cpu"]])
+def test_route_blocks_are_counted_on_the_calls_cards(monkeypatch, cards):
+    """A record's ``warp_blocks`` and ``thread_blocks`` are what
+    ``_build.route_blocks`` gained on the call's cards while it ran (K3's
+    blocks a route), not on others; a CPU call has none."""
+    from redux_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "route_blocks", type(_build.route_blocks)())
+    _build.count_blocks("warp", torch.device("cuda", 1), 3)  # before the call
+    rec = api._Recorder({}, "dec", 10, [torch.device(c) for c in cards])
+    for route, card, n in (("warp", 1, 7), ("thread", 0, 5), ("warp", 0, 2), ("warp", 2, 11)):
+        _build.count_blocks(route, torch.device("cuda", card), n)
+    rec.done(10)
+    got = api.recorded_calls()[-1]
+    want = {("cuda:1",): (7, 0), ("cuda:0", "cuda:1"): (9, 5), ("cpu",): (0, 0)}[tuple(cards)]
+    assert (got["warp_blocks"], got["thread_blocks"]) == want
+
+
 def test_a_mark_waits_for_no_device(monkeypatch):
     """The recorder of a call on the card marks with no synchronize."""
 

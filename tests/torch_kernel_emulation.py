@@ -4,9 +4,9 @@ the CPU tests: the reciprocal quotient (``rxt::div53``), the coder's total
 (``rxt::Count``), the renormalisation (``rxt::renorm``), the coder step and
 its branch-free emission (``rxt::Coder``, ``rxt::BitWriter``), K1's
 chunk step (``rxt::model_chunk``), the Fenwick model of K3 and K5
-(``rxt::Fenwick``) and one thread of K5 (``encode_m_thread``).  The
-kernels themselves run only on the card; these run their algorithms
-here."""
+(``rxt::Fenwick``), one thread of K5 (``encode_m_thread``) and one warp
+of K3's warp route (``decode_warp``).  The kernels themselves run only on
+the card; these run their algorithms here."""
 
 import numpy as np
 
@@ -16,6 +16,8 @@ EARLIER = np.tril(np.ones((32, 32), bool), -1)  # [j, i]: i < j
 NODES = 257  # Fenwick nodes 1..257 over the 257 symbol frequencies
 WALK = 9  # ``rxt::kWalk``: nodes of an update walk
 GROUP = 16  # K5's positions a round: symbols a load
+LANE_ROW = 8  # K3's warp route: row entries a lane owns
+LANES = np.arange(32)
 
 
 def div53(a, b):
@@ -239,3 +241,130 @@ def encode_m_thread(row, n: int, init_cum, params, n_words: int, delta: int, n_r
     if n >= 0:
         coder.terminate()
     return coder.finish()
+
+
+def narrow(p, c, count: int, rr: float):
+    """``narrow`` of ``csrc/decode.cu`` for the ints ``c`` of a sequence:
+    floor(c * range / count) from ``rr`` = range * (1/count) in double.
+    The kernel's fused multiply-add rounds the exact c * rr + 2**52 to an
+    integer, ties to even (here in exact integer arithmetic); then one is
+    taken off where q * count passes ``p`` = c * range."""
+    num, den = rr.as_integer_ratio()
+    out = []
+    for pe, ce in zip(p, c):
+        q, r = divmod(int(ce) * num, den)
+        q += 2 * r > den or (2 * r == den and q & 1)
+        out.append(q - (q * count > int(pe)))
+    return out
+
+
+def renorm32(low: int, high: int, cb: int):
+    """``renorm32`` of ``csrc/decode.cu``: ``renorm`` on an interval held in
+    32 bits (a shift by 32 gives 0).  Returns ``(low, high, n1, n3)``."""
+    cmax = M32 >> (32 - cb)
+    n1 = max(32 - (low ^ high).bit_length() - (32 - cb), 0)
+    low1 = (low << n1) & M32 & cmax
+    high1 = (((high << n1) & M32) | ((1 << n1) - 1)) & cmax
+    a = 32 - (((low1 << (33 - cb)) & M32) ^ M32).bit_length()
+    b = 32 - ((high1 << (33 - cb)) & M32).bit_length()
+    n3 = min(a, b, cb - 1)
+    low = (low1 << n3) & (cmax >> 1)
+    high = (((high1 << n3) | ((1 << n3) - 1)) & (cmax >> 1)) | (1 << (cb - 1))
+    return low, high, n1, n3
+
+
+class WarpBits:
+    """K3's ``BitReader``, the same in every lane: MSB-first reads of a row
+    of big-endian u32 words, a word loaded one refill early, zero words
+    past the row."""
+
+    def __init__(self, words):
+        self.w = [int(x) & M32 for x in words]
+        self.buf = self.nb = self.next = 0
+        self.ahead = self.w[0] if self.w else 0
+
+    def get(self, n: int) -> int:
+        if n == 0:
+            return 0
+        if self.nb < n:
+            self.buf |= self.ahead << (32 - self.nb)
+            self.nb += 32
+            self.next += 1
+            self.ahead = self.w[self.next] if self.next < len(self.w) else 0
+        v = self.buf >> (64 - n)
+        self.buf = (self.buf << n) & ((1 << 64) - 1)
+        self.nb -= n
+        return v
+
+
+def decode_warp(words, n_sym: int, init_cum, params, k: int, delta: int):
+    """One warp of K3's warp route (``csrc/decode.cu``, the untemplated
+    ``decode_kernel``) on one block: ``words`` its row, ``n_sym`` its
+    length.  Lane l's registers are row l of ``c`` (32, 9): cdf[8l .. 8l+8].
+    count at position t is init + delta * min(t, tfreeze), its reciprocal
+    taken by lane j for position t0 + j of each 32.  Per symbol, each lane
+    tests its entries (``c * range <= a`` and ``c != count``, a = (z+1) *
+    count - 1); the ballot of its first entry names the owning lane; each
+    lane picks its last qualifying entry by the kernel's tree of selects
+    and narrows over it and the next entry (``narrow``, before the ballot
+    is read); three shuffles bring the owner's pick, dlo and dhi - 1 to the
+    warp; low, high and z are warp-uniform and held in 32 bits, with the
+    kernel's ``renorm32`` and the bits; the update adds delta to each
+    lane's entries above sym while t < tfreeze.  Lane j keeps the symbol at t0 + j of each
+    32.  Returns the row of ``k`` bytes."""
+    cb = params.code_bits
+    cmax = (1 << cb) - 1
+    ic = np.asarray(init_cum, np.int64)
+    c = ic[LANE_ROW * LANES[:, None] + np.arange(LANE_ROW + 1)].astype(np.uint64)
+    init_total = int(ic[NODES])
+    tfreeze = max(-(-(params.freq_max - init_total) // delta), 0)
+    rd = WarpBits(words)
+    low, high = 0, cmax
+    z = rd.get(cb)
+    n = min(n_sym, k)
+    out = np.zeros(k, np.uint8)
+    for t0 in range(0, k, 32):
+        rc_lane = [1.0 / (init_total + delta * min(t0 + lane, tfreeze)) for lane in range(32)]
+        mine = np.zeros(32, np.uint64)
+        j = 0
+        while j < 32 and t0 + j < n:
+            t = t0 + j
+            upd = t < tfreeze
+            count = init_total + delta * (t if upd else tfreeze)
+            rc = rc_lane[j]
+            rm1 = (high - low) & M32
+            rr = float(rm1 + 1) * rc  # the kernel's fma(rm1, rc, rc): one rounding
+            a = count * z + count - 1
+            q = (c * np.uint64(rm1) + c <= np.uint64(a)) & (c != np.uint64(count))  # (32, 9)
+            i01, i23, i45, i67 = (np.where(q[:, 2 * m + 1], 2 * m + 1, 2 * m) for m in range(4))
+            l01, l23, l45, l67 = (np.where(q[:, 2 * m + 1], c[:, 2 * m + 1], c[:, 2 * m])
+                                  for m in range(4))
+            h01, h23, h45, h67 = (np.where(q[:, 2 * m + 1], c[:, 2 * m + 2], c[:, 2 * m + 1])
+                                  for m in range(4))
+            i03, i47 = np.where(q[:, 2], i23, i01), np.where(q[:, 6], i67, i45)
+            l03, l47 = np.where(q[:, 2], l23, l01), np.where(q[:, 6], l67, l45)
+            h03, h47 = np.where(q[:, 2], h23, h01), np.where(q[:, 6], h67, h45)
+            i07 = np.where(q[:, 4], i47, i03)
+            l07, h07 = np.where(q[:, 4], l47, l03), np.where(q[:, 4], h47, h03)
+            i = np.where(q[:, 8], 8, i07)
+            lo = np.where(q[:, 8], c[:, 8], l07)
+            hi = np.where(q[:, 8], np.uint64(count), h07)
+            dlo = narrow(lo * np.uint64(rm1) + lo, lo, count, rr)
+            dhi = narrow(hi * np.uint64(rm1) + hi, hi, count, rr)
+            own = int(sum(1 << lane for lane in range(32) if q[lane, 0]))
+            src = (own | 1).bit_length() - 1  # bfind
+            dl, dhm1 = dlo[src] & M32, (dhi[src] - 1) & M32
+            sym = LANE_ROW * src + int(i[src])
+            high = (low + dhm1) & M32
+            low = (low + dl) & M32
+            low, high, n1, n3 = renorm32(low, high, cb)
+            nbits = min(n1 + n3, cb)
+            z = ((((z - dl) & M32) << nbits) | rd.get(nbits)) & cmax
+            d = sym - LANE_ROW * LANES
+            c += np.where(upd & (np.arange(LANE_ROW + 1)[None, :] > d[:, None]), delta, 0).astype(
+                np.uint64)
+            mine = np.where(LANES == j, np.uint64(sym), mine)
+            j += 1
+        m = min(32, k - t0)
+        out[t0 : t0 + m] = (mine[:m] & np.uint64(0xFF)).astype(np.uint8)
+    return out
