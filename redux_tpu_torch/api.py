@@ -246,12 +246,15 @@ def _by_card(steps: list[list[_Share]], n_cards: int) -> list[list[_Share]]:
     return own
 
 
-def _each(shares: Sequence[_Share], *fns: Callable[[_Share], None]) -> None:
+def _each(shares: Sequence[_Share], *fns: Callable[[_Share], None],
+          rec: Optional[_Recorder] = None) -> None:
     """Run the first of ``fns`` on every share of a step, then the second
     on every share, and so on: every device's kernels are queued before
-    the host copies that follow them."""
+    the host copies that follow them.  Each run serves its share's device
+    (:meth:`_Recorder.serve`)."""
     for fn in fns:
         for sh in shares:
+            _serve(rec, sh.card)
             fn(sh)
 
 
@@ -260,7 +263,7 @@ def _crc_of(steps: list[list[_Share]], crcs: dict, n: int, k: int,
     """The CRC-32 of a call's ``n`` bytes from each share's CRC, ``crcs[j][i]``
     on device ``j`` for its share ``i`` (one fetch a device, the call's
     ``sums wait``), combined in block order."""
-    got = {j: _to_host(c).to(torch.int64) & 0xFFFFFFFF for j, c in crcs.items()}
+    got = {j: _to_host(crcs[j]).to(torch.int64) & 0xFFFFFFFF for j in _serving(rec, crcs)}
     _mark(rec, "sums wait")
     order = [sh for step in steps for sh in step]
     return combine_crcs(torch.tensor([int(got[sh.card][sh.i]) for sh in order], dtype=torch.int64),
@@ -287,10 +290,16 @@ def recorded_calls() -> list[dict]:
     Each is a dict: ``id`` (in call order), ``kind`` (``"enc"`` or
     ``"dec"``), ``bytes_in`` and ``bytes_out`` (the call's argument and
     result), ``cards`` (its devices), ``spans`` (``(phase, part,
-    start_ns, end_ns)`` a mark), ``h2d`` and ``d2h`` (bytes the call
-    copied to and from its devices, ``_build.bus_bytes`` over the call) and
-    ``warp_blocks`` and ``thread_blocks`` (the blocks K3 decoded on each
-    route on the call's devices, ``_build.route_blocks`` over the call)."""
+    start_ns, end_ns)`` a mark; on a call over several devices a part that
+    serves one device's shares ends in ``@j``, ``j`` its position in
+    ``cards``), ``h2d`` and ``d2h`` (bytes the call copied to and from its
+    devices, ``_build.bus_bytes`` over the call), ``h2d_by_card`` and
+    ``d2h_by_card`` (the same bytes by the position in ``cards`` of the
+    device each copy served: lists aligned with ``cards`` that sum to
+    ``h2d`` and ``d2h``), ``blocks_by_card`` (the blocks of each position's
+    shares, from :func:`_shares`), and ``warp_blocks`` and
+    ``thread_blocks`` (the blocks K3 decoded on each route on the call's
+    devices, ``_build.route_blocks`` over the call)."""
     return list(_records)
 
 
@@ -309,7 +318,15 @@ class _Recorder:
     the copies count into ``_build.bus_bytes`` from the recorder's start
     until the call has its result and hands its record to
     :func:`recorded_calls` (:meth:`done`), and so are the blocks K3
-    decodes a route on the call's devices (``_build.route_blocks``)."""
+    decodes a route on the call's devices (``_build.route_blocks``).
+
+    The call names the entry of its device list that its next steps serve
+    (:meth:`serve`, by position: a list that names one device twice has
+    two entries).  The bytes counted from then until it names another go
+    to that entry; on a list of two or more, the marks made meanwhile end
+    their part in ``@j``.  Steps that serve the whole call (the parse, the
+    header, the CRCs' combine) serve no entry: their parts keep their
+    names."""
 
     def __init__(self, timings: dict, kind: str, nbytes: int, cards: Sequence[torch.device]):
         self.tt, self.kind, self.bytes_in = timings, kind, nbytes
@@ -317,12 +334,37 @@ class _Recorder:
         self.indices = {d.index or 0 for d in cards if d.type == "cuda"}
         self.phase = ""
         self.spans = []
+        self.entry = None  # the entry the next marks serve; None: the whole call
+        self.owner = 0  # the entry the bytes counted since ``seen`` serve
+        self.by_card = {way: [0] * len(cards) for way in ("h2d", "d2h")}
+        self.blocks = [0] * len(cards)
         self.bus0 = _build.bus_bytes.copy()
+        self.seen = self.bus0.copy()
         self.blocks0 = _build.route_blocks.copy()
         self.t0 = time.time_ns()
 
+    def plan(self, own: list[list[_Share]]) -> None:
+        """The call's shares, each entry's (:func:`_by_card`)."""
+        self.blocks = [sum(sh.s1 - sh.s0 for sh in mine) for mine in own]
+
+    def serve(self, j: Optional[int]) -> None:
+        """The next steps serve entry ``j``, or the whole call (None: the
+        bytes go on to the last entry named)."""
+        if j is not None and j != self.owner:
+            self._settle()
+            self.owner = j
+        self.entry = j
+
+    def _settle(self) -> None:
+        """The bytes counted since the last settle to the entry served."""
+        for way in ("h2d", "d2h"):
+            self.by_card[way][self.owner] += _build.bus_bytes[way] - self.seen[way]
+            self.seen[way] = _build.bus_bytes[way]
+
     def mark(self, part: str) -> None:
         now = time.time_ns()
+        if self.entry is not None and len(self.cards) > 1:
+            part = f"{part}@{self.entry}"
         ns = now - self.t0
         for key in (self.phase, f"{self.phase} {part}"):  # first, close to ``now``
             self.tt[key] = self.tt.get(key, 0.0) + ns / 1e9
@@ -331,12 +373,14 @@ class _Recorder:
 
     def done(self, nbytes: int) -> None:
         """The call returns ``nbytes``: its record into :func:`recorded_calls`."""
+        self._settle()
         bus = {way: _build.bus_bytes[way] - self.bus0[way] for way in ("h2d", "d2h")}
         blocks = {f"{route}_blocks": sum(_build.route_blocks[route, i] - self.blocks0[route, i]
                                          for i in self.indices) for route in ("warp", "thread")}
         _records.append(dict(id=next(_call_ids), kind=self.kind, bytes_in=self.bytes_in,
                              bytes_out=nbytes, cards=self.cards, spans=self.spans, **bus,
-                             **blocks))
+                             h2d_by_card=self.by_card["h2d"], d2h_by_card=self.by_card["d2h"],
+                             blocks_by_card=self.blocks, **blocks))
 
 
 def _phase(rec: Optional[_Recorder], phase: str) -> None:
@@ -349,6 +393,22 @@ def _mark(rec: Optional[_Recorder], part: str) -> None:
     """End the recorded call's span since its last mark as ``part``."""
     if rec is not None:
         rec.mark(part)
+
+
+def _serve(rec: Optional[_Recorder], j: Optional[int]) -> None:
+    """The recorded call's next steps serve entry ``j`` of its devices, or
+    the whole call (None)."""
+    if rec is not None:
+        rec.serve(j)
+
+
+def _serving(rec: Optional[_Recorder], entries):
+    """Each of ``entries`` in turn, the recorded call's steps serving it
+    until the next is drawn; once all are drawn, the whole call."""
+    for j in entries:
+        _serve(rec, j)
+        yield j
+    _serve(rec, None)
 
 
 _new_pybytes = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ssize_t)(
@@ -666,8 +726,9 @@ def encode(
     and ``_timings`` receives the host seconds of each phase, ``pass1``
     (each share's upload, histogram and crc, the prior), ``pass2`` (each
     share's upload, K1 -> K2, the payload splice and its fetch) and
-    ``header``, and of each part of a phase (``"pass2 stage"``), at each
-    mark: no mark waits for a device.
+    ``header``, and of each part of a phase (``"pass2 stage"``; over
+    several devices ``"pass2 stage@j"`` where the part serves the ``j``-th
+    device's share), at each mark: no mark waits for a device.
     """
     cards = _cards(device)
     rec = _Recorder(_timings, "enc", len(data), cards) if _timings is not None else None
@@ -689,6 +750,8 @@ def encode(
     steps = _shares(n_blocks, _lane_chunk(ENC_CHUNK_BYTES, k), len(cards))
     own = _by_card(steps, len(cards))
     busy = [j for j, mine in enumerate(own) if mine]
+    if rec is not None:
+        rec.plan(own)
 
     def span(sh: _Share) -> tuple[int, int, int]:
         """The share's bytes, zero past the input to its blocks' end."""
@@ -722,8 +785,9 @@ def encode(
         ups[sh.card].prefetch()
 
     for step in steps:
-        _each(step, count, load_next)
-    hist = sum((_to_host(h) for h in hists.values()), torch.zeros(256, dtype=torch.int64))
+        _each(step, count, load_next, rec=rec)
+    hist = sum((_to_host(hists[j]) for j in _serving(rec, hists)),
+               torch.zeros(256, dtype=torch.int64))
     crc = _crc_of(steps, crcs, n, k, rec)
     prior_extra = _prior_extra(hist.numpy(), params, prior_budget) if use_prior else None
     ic = _init_cum(params, prior_extra)
@@ -775,12 +839,13 @@ def encode(
         fetches = {j: _Fetch(out, cards[j], max((sh.s1 - sh.s0) * k for sh in own[j]),
                              min(2, len(own[j]))) for j in busy}
         _mark(rec, "alloc")
-        ic_t = {j: _to_device(ic_np, cards[j]) for j in busy}
+        ic_t = {j: _to_device(ic_np, cards[j]) for j in _serving(rec, busy)}
         _mark(rec, "launch")
         off = head_len
         for step in steps:
-            _each(step, code, overlap)
+            _each(step, code, overlap, rec=rec)
             for sh in step:  # the wire lengths and flags to the host, S2 by them
+                _serve(rec, sh.card)
                 blocks, words, head = coded.pop(sh.card)
                 head = _to_host(head)
                 _mark(rec, "lengths wait")
@@ -793,7 +858,7 @@ def encode(
                 fetches[sh.card].put(sh.i, payload, off)
                 off += size
                 del blocks, words, payload
-        for j in busy:
+        for j in _serving(rec, busy):
             fetches[j].drain()
         _phase(rec, "header")
         out.ready(0, head_len)
@@ -930,8 +995,9 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     share's slice), ``kernels`` (S1 -> K3 into the rows, the raw rows) and
     ``crc+fetch`` (S3, the copy to the host and into the result, the
     CRCs' combine and check), and of each part of a phase (``"kernels
-    lanes"``), at each mark: no mark waits for a device, so a recorded
-    call overlaps what an unrecorded one does.
+    lanes"``; over several devices ``"kernels lanes@j"`` where the part
+    serves the ``j``-th device's share), at each mark: no mark waits for a
+    device, so a recorded call overlaps what an unrecorded one does.
     """
     cards = _cards(device)
     rec = _Recorder(_timings, "dec", len(archive), cards) if _timings is not None else None
@@ -952,6 +1018,8 @@ def decode(archive: bytes, *, device: Devices = "cuda",
     steps = _shares(n_blocks, _lane_chunk(DEC_CHUNK_BYTES, k), len(cards))
     own = _by_card(steps, len(cards))
     busy = [j for j, mine in enumerate(own) if mine]
+    if rec is not None:
+        rec.plan(own)
     ends = _stream_ends(header, lanes)
     base = {sh: int(header.stream_offs[sh.s0]) for step in steps for sh in step}
     _mark(rec, "parse")
@@ -989,11 +1057,11 @@ def decode(archive: bytes, *, device: Devices = "cuda",
         fetches = {j: _Fetch(output, cards[j], rows[j] * k, outs[j].shape[0]) for j in busy}
         _mark(rec, "alloc")
         crcs = {j: torch.zeros(len(own[j]), dtype=torch.int32, device=cards[j]) for j in busy}
-        ic_t = {j: _to_device(ic, cards[j]) for j in busy}
+        ic_t = {j: _to_device(ic, cards[j]) for j in _serving(rec, busy)}
         _mark(rec, "launch")
         for step in steps:
-            _each(step, decode_share, fetch_share)
-        for j in busy:
+            _each(step, decode_share, fetch_share, rec=rec)
+        for j in _serving(rec, busy):
             fetches[j].drain()
         del fetches
         ok = _crc_of(steps, crcs, n, k, rec) == header.crc32

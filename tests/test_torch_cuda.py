@@ -923,6 +923,47 @@ def test_recorded_calls_on_the_card(cuda_device, monkeypatch, tmp_path):
         assert all(a[3] == b[2] for a, b in zip(spans, spans[1:]))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["dev_dev", "every_card"])
+def test_recorded_calls_by_card(cuda_device, monkeypatch, tmp_path, which):
+    """4 MiB over a device list in several shares a card, recorded: each
+    entry's bus bytes equal their closed form, and summed over the entries
+    on one card, the bytes of that card's host <-> card copies in the
+    profiler's trace; every entry's parts end in ``@j``."""
+    import json
+
+    from redux_tpu_torch import api, testdata
+    from test_torch_recorder import bus_bytes_by_card
+
+    devices = _device_list(which, cuda_device)
+    data = testdata.mixed(4 << 20, 41)
+    k = api._default_block_size(len(data))
+    monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * k)
+    monkeypatch.setattr(api, "DEC_CHUNK_BYTES", 128 * k)
+    want = api.encode(data, device=devices)  # S3's constants go up to each card here
+    assert api.decode(want, device=devices) == data
+    calls = {"enc": lambda t: api.encode(data, device=devices, _timings=t),
+             "dec": lambda t: api.decode(want, device=devices, _timings=t)}
+    closed = bus_bytes_by_card(data, want, devices, k, 128)
+    for kind, call in calls.items():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call({})
+        rec = api.recorded_calls()[-1]
+        assert list(zip(rec["h2d_by_card"], rec["d2h_by_card"])) == closed[kind], kind
+        prof.export_chrome_trace(str(tmp_path / f"{kind}.json"))
+        events = json.loads((tmp_path / f"{kind}.json").read_text())["traceEvents"]
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+        for card in {d.index for d in devices}:
+            on = [j for j, d in enumerate(devices) if d.index == card]
+            copied = tuple(sum(e["args"]["bytes"] for e in copies
+                               if way in e["name"] and e["args"].get("device", e.get("pid")) == card)
+                           for way in ("HtoD", "DtoH"))
+            assert copied == (sum(rec["h2d_by_card"][j] for j in on),
+                              sum(rec["d2h_by_card"][j] for j in on)), (kind, card)
+        tags = {s[1].partition("@")[2] for s in rec["spans"]} - {""}
+        assert tags == {str(j) for j in range(len(devices))}
+
+
 @pytest.fixture(scope="module")
 def route_inputs():
     """16,384 blocks of ``cuda_checks.phase3_data`` (4096 bytes, seed 23)

@@ -9,11 +9,15 @@ noting ``_timings`` opens for it in ``torch.profiler``'s trace.  A call
 without ``_timings`` builds no recorder and records nothing.  The chunks
 are cut to 128 blocks of 256 bytes (``ENC_CHUNK_BYTES`` /
 ``DEC_CHUNK_BYTES`` patched), so a few hundred blocks take several
-shares, on one device and on ``["cpu", "cpu"]``.
+shares, on one device, on ``["cpu", "cpu"]`` and on ``["cpu"] * 4`` (two
+full steps and an uneven last one).  Over a list the bytes and the parts
+are counted by entry: each part that serves one entry's shares ends in
+``@j``, ``j`` the entry's position in the list.
 """
 
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +30,7 @@ CASES = {
     "one_share": (100, 256, "cpu"),
     "shares": (300, 100, "cpu"),
     "two_devices": (300, 100, ["cpu", "cpu"]),
+    "four_entries": (2 * 4 * CHUNK + 7, 100, ["cpu"] * 4),
     "empty": (0, 0, "cpu"),
 }
 # Every part a call can mark, and those only the card's path has: its
@@ -36,6 +41,17 @@ PARTS = {"stage", "copy", "slot wait", "fetch wait", "lengths wait", "sums wait"
 CARD_ONLY = {"pin", "slot wait", "fetch wait"}
 PHASES = {"enc": {"pass1", "pass2", "header"},
           "dec": {"parse", "upload", "kernels", "crc+fetch"}}
+# The parts that serve the whole call, never one entry of a list.
+WHOLE = {"alloc", "sums wait", "parse", "prior", "header", "check"}
+
+
+def _part(part: str, n_cards: int) -> str:
+    """A span's part without its entry (``stage@1`` -> ``stage``): on a
+    list an entry below its length, on one device none."""
+    name, tagged, j = part.partition("@")
+    if tagged:
+        assert n_cards > 1 and name not in WHOLE and 0 <= int(j) < n_cards, part
+    return name
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -108,7 +124,8 @@ def test_spans_tile_the_call_and_phases_sum_their_parts(calls, case, kind):
     for (_, _, _, end), (_, _, start, _) in zip(spans, spans[1:]):
         assert start == end  # consecutive, no overlap
     for phase, part, start, end in spans:
-        assert start <= end and part in PARTS and phase in PHASES[kind]
+        assert start <= end and _part(part, len(rec["cards"])) in PARTS
+        assert phase in PHASES[kind]
     # Every phase key is the sum of its parts, each part the sum of its spans.
     assert {key.split(" ", 1)[0] for key in timings} == {s[0] for s in spans}
     for phase in {s[0] for s in spans}:
@@ -122,12 +139,13 @@ def test_spans_tile_the_call_and_phases_sum_their_parts(calls, case, kind):
     assert len(spans) <= 8 + 12 * n_shares
 
 
-@pytest.mark.parametrize("case", ["shares", "two_devices"])
+@pytest.mark.parametrize("case", ["shares", "two_devices", "four_entries"])
 def test_every_part_appears_in_a_call_of_several_shares(calls, case):
     """Every part the CPU's path has; the card's pinned slots and their
     waits are the card's alone (``tests/test_torch_cuda.py``)."""
-    _, _, _, ways = calls[case]
-    seen = {s[1] for kind in ways for s in ways[kind][1]["spans"]}
+    _, devs, _, ways = calls[case]
+    n_cards = len(api._cards(devs))
+    seen = {_part(s[1], n_cards) for kind in ways for s in ways[kind][1]["spans"]}
     assert seen == PARTS - CARD_ONLY
     assert {s[0] for kind in ways for s in ways[kind][1]["spans"]} == set().union(*PHASES.values())
     # The last mark comes after the result is made: a header or a check.
@@ -135,40 +153,52 @@ def test_every_part_appears_in_a_call_of_several_shares(calls, case):
         ("header", "header"), ("crc+fetch", "check")]
 
 
-def bus_bytes(data: bytes, arch: bytes, devs, k: int = K, chunk: int = CHUNK) -> dict:
-    """The bytes a round trip moves to and from its devices, worked out
-    from the input, the archive (of ``k``-byte blocks) and the share plan
-    (``chunk`` blocks a lane chunk)."""
+def bus_bytes_by_card(data: bytes, arch: bytes, devs, k: int = K,
+                      chunk: int = CHUNK) -> dict:
+    """The bytes a round trip moves to and from each entry of its devices,
+    worked out from the input, the archive (of ``k``-byte blocks) and the
+    share plan (``chunk`` blocks a lane chunk): per way, ``(h2d, d2h)`` an
+    entry."""
     n_cards = len(api._cards(devs))
     if not data:
-        return {"enc": (0, 0), "dec": (0, 0)}
+        return {"enc": [(0, 0)] * n_cards, "dec": [(0, 0)] * n_cards}
     header = container.parse_table(arch)
     assert header.block_size == k
-    steps = api._shares(header.n_blocks, chunk, n_cards)
-    own = api._by_card(steps, n_cards)
-    busy = [mine for mine in own if mine]
-    shares = [sh for step in steps for sh in step]
+    own = api._by_card(api._shares(header.n_blocks, chunk, n_cards), n_cards)
     n = len(data)
-    payload = len(arch) - container.header_bytes(header.n_blocks, header.prior_extra is not None)
+    wire = header.byte_lens.astype(np.int64)  # a block's bytes in the payload
+    coded = ~header.raw
     row = 4 * (header.params.symbol_count + 1)  # the initial cumulative row, int32
-    share_bytes = [min(sh.s1 * k, n) - sh.s0 * k for sh in shares]
-    # Encode: every share's bytes up once, again where its device has
-    # more than one; the row, the blocks' lengths (int32) and S2's table
-    # (int32 length, bool flag) up; the payload, the histograms (256
-    # int64 a device), the largest byte of each share (which
-    # ``torch.bincount`` reads back), the CRCs (int32 a share) and the wire
-    # lengths and flags (two int32 a block) down.
-    enc_h2d = sum(b * (1 if len(own[sh.card]) == 1 else 2) for sh, b in zip(shares, share_bytes))
-    enc_h2d += row * len(busy) + sum(9 * (sh.s1 - sh.s0) for sh in shares)
-    largest = len(shares) if n >= 4096 else 0  # with the prior, by default
-    enc_d2h = payload + 2048 * len(busy) + largest + 4 * len(shares) + 8 * header.n_blocks
-    # Decode: the payload (each share's slice) and the row up, and a
-    # block's S1 offset and length (two int64), its row index (int64) and
-    # a coded block's symbol count (int32); the output and the CRCs down.
-    coded = int((~header.raw).sum())
-    dec_h2d = payload + row * len(busy) + 24 * header.n_blocks + 4 * coded
-    dec_d2h = n + 4 * len(shares)
-    return {"enc": (enc_h2d, enc_d2h), "dec": (dec_h2d, dec_d2h)}
+    largest = n >= 4096  # the prior's histogram, by default
+    out = {"enc": [], "dec": []}
+    for mine in own:
+        busy, shares = bool(mine), len(mine)
+        blocks = sum(sh.s1 - sh.s0 for sh in mine)
+        share_bytes = sum(min(sh.s1 * k, n) - sh.s0 * k for sh in mine)
+        payload = sum(int(wire[sh.s0 : sh.s1].sum()) for sh in mine)
+        n_coded = sum(int(coded[sh.s0 : sh.s1].sum()) for sh in mine)
+        # Encode: the entry's shares' bytes up once, again where it has
+        # more than one; the row, the blocks' lengths (int32) and S2's
+        # table (int32 length, bool flag) up; its payload, its histogram
+        # (256 int64), the largest byte of each share (which
+        # ``torch.bincount`` reads back), the CRCs (int32 a share) and the
+        # wire lengths and flags (two int32 a block) down.
+        out["enc"].append((share_bytes * (1 if shares == 1 else 2) + row * busy + 9 * blocks,
+                           payload + 2048 * busy + (largest + 4) * shares + 8 * blocks))
+        # Decode: its shares' slices of the payload and the row up, and a
+        # block's S1 offset and length (two int64), its row index (int64)
+        # and a coded block's symbol count (int32); its output and the
+        # CRCs down.
+        out["dec"].append((payload + row * busy + 24 * blocks + 4 * n_coded,
+                           share_bytes + 4 * shares))
+    return out
+
+
+def bus_bytes(data: bytes, arch: bytes, devs, k: int = K, chunk: int = CHUNK) -> dict:
+    """The bytes a round trip moves to and from its devices: per way,
+    ``(h2d, d2h)`` summed over the entries (:func:`bus_bytes_by_card`)."""
+    return {kind: tuple(sum(way) for way in zip(*per))
+            for kind, per in bus_bytes_by_card(data, arch, devs, k, chunk).items()}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -182,6 +212,35 @@ def test_bus_bytes_equal_their_closed_form(calls, case):
         assert ways["enc"][1]["h2d"] > 2 * len(data)
     if case == "one_share":
         assert len(data) < ways["enc"][1]["h2d"] < len(data) + 4096
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_each_entry_counts_its_own_shares(calls, case):
+    """The bytes by entry sum to the call's and are each entry's own
+    shares' (a list that names the CPU two or four times counts each
+    entry); the blocks by entry are the share plan's; on a list the
+    entries' parts end in ``@j``, on one device no part does and each
+    count by entry is the call's."""
+    data, devs, arch, ways = calls[case]
+    n_cards = len(api._cards(devs))
+    want = bus_bytes_by_card(data, arch, devs)
+    n_blocks = -(-len(data) // K)
+    plan = [sum(sh.s1 - sh.s0 for sh in mine)
+            for mine in api._by_card(api._shares(n_blocks, CHUNK, n_cards), n_cards)]
+    for kind in ("enc", "dec"):
+        rec = ways[kind][1]
+        assert sum(rec["h2d_by_card"]) == rec["h2d"] and sum(rec["d2h_by_card"]) == rec["d2h"]
+        assert list(zip(rec["h2d_by_card"], rec["d2h_by_card"])) == want[kind], kind
+        assert rec["blocks_by_card"] == plan
+        tagged = {s[1].partition("@")[2] for s in rec["spans"]} - {""}
+        if n_cards == 1:
+            assert not tagged
+            assert (rec["h2d_by_card"], rec["d2h_by_card"]) == ([rec["h2d"]], [rec["d2h"]])
+        elif data:
+            assert tagged == {str(j) for j in range(n_cards)}
+    if case == "four_entries":
+        assert [len(step) for step in api._shares(n_blocks, CHUNK, 4)] == [4, 4, 4]
+        assert plan == [2 * CHUNK + 2] * 3 + [2 * CHUNK + 1]
 
 
 def test_an_unrecorded_call_records_nothing(chunked, monkeypatch):
