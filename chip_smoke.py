@@ -5,12 +5,13 @@
 Builds the CUDA kernels from ``redux_tpu_torch/csrc/``, checks each
 against its plain PyTorch version on the card (and the fused K4 and the
 model-in-kernel K5 against K2's streams; the staging kernels S1-S3 also
-against zlib's crc32, K2's words and the archive's payload), checks the
+against zlib's crc32, K2's words and the archive's payload; S4 against its
+plain version on the same bytes on the host), checks the
 golden archives of ``tests/golden_torch/``, then drives
 ``redux_tpu_torch.api.encode`` -> ``decode`` over 64 MiB of generated
 data three ways: the default route (K1 -> K2, K3, with S1 row gather, S2
-payload splice and S3 crc32 around them: the data crosses the bus once
-each way), the fused route (``REDUX_TPU_ENC_FUSED=1``: K4), and over the
+payload splice, S3 crc32 and S4 byte histogram around them: the data
+crosses the bus once each way), the fused route (``REDUX_TPU_ENC_FUSED=1``: K4), and over the
 device lists ``data_parallel_mesh()`` and ``[dev, dev]`` (each card
 uploads, codes, splices, checks and fetches its own shares: its launches
 must be what the share plan ``api._shares`` gives it, its peak device
@@ -36,7 +37,7 @@ multi-GB size: 2 GiB + 1 MiB of ``testdata.mixed`` through ``api.encode``
 -> ``decode`` (nine lane chunks each way, one launch each of K1 and K2 a
 chunk and of K3 a range of blocks, the encode's device memory held under
 its reckoning from one chunk's shapes and the decode's under two ranges'
-worth, two chunks held to the plain versions, S1-S3 held to
+worth, two chunks held to the plain versions, S1-S4 held to
 theirs on one 65,536-lane chunk), the same input over ``[dev, dev]`` and
 over every card where there are two or more (archives byte-equal to the
 one-card archive, launches a card as the share plan gives them, each
@@ -48,8 +49,8 @@ again.  Phases print one
 line each; the line
 before the last is the kernels' JSON summary (each kernel's time at the
 main shapes beside its bound, ``cuda_checks.kernel_bounds`` and
-``compare_staging``; no single PyTorch call computes any of them, so
-``library_ms`` is null) and the
+``compare_staging``; ``library_ms`` is S4's ``torch.bincount`` on the
+card, and null for the others, which no single PyTorch call computes) and the
 last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero and prints no result; so does a machine without CUDA.
 """
@@ -71,7 +72,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 MAIN_BYTES = 64 << 20
 SEED = 2024
 # Kernels of the default route: K1 -> K2, K3, and the staging kernels around them.
-MAIN_PATH = ("model_values", "encode", "decode", "gather_rows", "splice_payload", "crc32")
+MAIN_PATH = ("model_values", "encode", "decode", "gather_rows", "splice_payload", "crc32",
+             "histogram")
 # Phase 10's campaign: a fixed seed, bounded by trials and by wall clock.
 FUZZ_SEED, FUZZ_TRIALS, FUZZ_MINUTES = 17, 200, 1.25
 # Phase 11, at size: past 2**31 bytes (where an int32 byte offset would
@@ -155,7 +157,7 @@ def _sync(dev):
 
 
 def _coders(counts):
-    """The launch counts of K1-K5 alone (the staging kernels S1-S3 left out)."""
+    """The launch counts of K1-K5 alone (the staging kernels S1-S4 left out)."""
     from redux_tpu_torch import cuda_checks
 
     return {k: counts[k] for k in cuda_checks.KERNELS}
@@ -234,7 +236,7 @@ def phase8(dev, data, native_build_s, small_bytes=256 << 10, redux_bytes=1 << 20
             raise AssertionError("auto: round trip is not byte-equal")
         want = {"model_values": 3, "encode": 3, "decode": 1, "encode_fused": 0, "encode_m": 0}
         if _coders(counts) != want or not all(counts[k] for k in cuda_checks.STAGING):
-            raise AssertionError(f"auto: launches {counts}, want {want} and S1-S3")
+            raise AssertionError(f"auto: launches {counts}, want {want} and S1-S4")
         cands = {
             "prior": api.encode(data, use_prior=True, device=dev),
             "no prior": api.encode(data, use_prior=False, device=dev),
@@ -417,7 +419,8 @@ def _want_per_card(cards, arch):
     """Each card's launches after ``api.encode`` and after ``api.decode``
     of ``arch`` over the device list ``cards``,
     as the share plan (``api._shares``) gives them: encoding, K1, K2, S2
-    and S3 once a share; decoding, K3 and S1 (words) once a share with
+    and S3 once a share, and S4 once a share of an input of 4096 bytes
+    or more (the prior's histogram, by default); decoding, K3 and S1 (words) once a share with
     coded blocks, S1 (bytes) once a share with raw blocks, S3 once a
     share.  Keyed by card (a card the list names twice sums both)."""
     import redux_tpu_torch
@@ -431,6 +434,7 @@ def _want_per_card(cards, arch):
         for sh in step:
             for name in ("model_values", "encode", "splice_payload", "crc32"):
                 want_enc[cards[sh.card]][name] += 1
+            want_enc[cards[sh.card]]["histogram"] += header.orig_len >= 4096
     want_dec = {d: dict(w) for d, w in want_enc.items()}
     for step in api._shares(n_blocks, api._lane_chunk(api.DEC_CHUNK_BYTES, k), len(cards)):
         for sh in step:
@@ -646,7 +650,7 @@ def _print_staging(what, res):
     """One line a staging kernel of ``cuda_checks.compare_staging``'s result."""
     from redux_tpu_torch import cuda_checks
 
-    for k in ("gather_rows", "splice_payload", "crc32"):
+    for k in cuda_checks.STAGING:
         r = res[k]
         ms = f"{r['ms']:.4f} ms" if r["ms"] is not None else "not timed"
         if r["ms"]:
@@ -656,6 +660,8 @@ def _print_staging(what, res):
         if r["ms_call"] is not None:
             ms += f", {r['ms_call']:.4f} ms a call with its checks"
         plain = f"{r['plain_ms']:.3f} ms" if r["plain_ms"] is not None else "not timed"
+        if r["library_ms"] is not None:
+            plain += f", library {r['library_ms']:.4f} ms"
         print(f"{what} {k}: equal (max |diff| {r['max_abs_err']}), kernel {ms}, plain {plain}, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} bytes, {r['ops']} "
               f"int32 ops)")
@@ -664,7 +670,8 @@ def _print_staging(what, res):
           "bytes and from 1, 7 and 15 bytes in; gather_rows also equal to its plain version in "
           f"{res['gather_rows']['edge_cases']} edge cases (offsets at every residue mod 16, rows "
           "ending at the buffer's last byte, empty and full rows, widths off 4 and 16, the "
-          "buffer 0, 1, 7 and 15 bytes in)")
+          "buffer 0, 1, 7 and 15 bytes in); histogram also from 1, 7 and 15 bytes in and "
+          "added into a row that held counts")
 
 
 def phase11(dev):
@@ -699,7 +706,7 @@ def phase11(dev):
           f"before, {_peak_rss_gib():.3f} GiB after")
 
     # (a) The main path at size, on one card, then over two shares a step
-    # on it and over every card; S1-S3 on one 65,536-lane chunk of its input.
+    # on it and over every card; S1-S4 on one 65,536-lane chunk of its input.
     big_arch = _at_size(dev, big)
     from redux_tpu_torch.parallel import data_parallel_mesh
 
@@ -751,7 +758,8 @@ def phase11(dev):
             _sync(dev)
             dt = time.perf_counter() - t0
             counts = redux_tpu_torch.launch_counts()
-            staged = ("splice_payload", "crc32") if mode == "compress" else ("gather_rows", "crc32")
+            staged = (("splice_payload", "crc32", "histogram") if mode == "compress"
+                      else ("gather_rows", "crc32"))
             if (_coders(counts) != dict.fromkeys(cuda_checks.KERNELS, 0) | want
                     or not all(counts[s] for s in staged)):
                 raise AssertionError(f"cli {mode}: launches {counts}, want {want} and {staged}")
@@ -948,7 +956,7 @@ def main() -> int:
                 "name": k, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": path_launches[k], "max_abs_err": err,
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "bound": r["bound"], "library_ms": None,
+                "bound_by": r["bound_by"], "bound": r["bound"], "library_ms": r.get("library_ms"),
             })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

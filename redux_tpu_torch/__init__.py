@@ -43,7 +43,7 @@ __all__ = [
 
 
 _KERNEL_NAMES = ("model_values", "encode", "decode", "encode_fused", "encode_m", "gather_rows",
-                 "splice_payload", "crc32")
+                 "splice_payload", "crc32", "histogram")
 
 
 def launch_counts(device=None) -> dict:

@@ -54,6 +54,8 @@ SIGNATURES = {
     "rxt_splice_payload": (_P, _I, _P, _I, _L, _P, _P, _P, _L, _I, _P),
     # buf, n, consts, out, device, stream
     "rxt_crc32": (_P, _L, _P, _P, _I, _P),
+    # buf, n, out, device, stream
+    "rxt_byte_histogram": (_P, _L, _P, _I, _P),
 }
 
 _lib = None

@@ -15,7 +15,7 @@ and for decode, the lanes sorted by coded length, the decoder (K3,
 The data lives on the device between one upload and one fetch: the
 reference staged it on the host for its TPU's sake, the port on the card
 with the staging kernels of ``ops.staging`` (S1 row gather, S2 payload
-splice, S3 crc32) and ``torch.bincount`` for the histogram.  ``encode``
+splice, S3 crc32, S4 byte histogram).  ``encode``
 reads the input in lane chunks twice (histogram and crc, then the
 kernels; an input of one chunk a device crosses the bus once) and
 fetches each chunk's payload straight to its offset in the returned
@@ -76,7 +76,7 @@ from .models.dense import prior_init_cum, quantize_prior, uniform_init_cum
 from .ops.coder import max_block_words
 from .ops.decode import decode_blocks
 from .ops.encode import encode_blocks_ranked
-from .ops.staging import combine_crcs, crc32_device, gather_rows, splice_payload
+from .ops.staging import byte_histogram, combine_crcs, crc32_device, gather_rows, splice_payload
 from .params import Parameters
 
 # Default decode lane quantum of the reference (its LANES x PHASES = 1024 x 1):
@@ -130,12 +130,8 @@ def _encode_words(params: Parameters, k: int, delta: int) -> int:
 
 def _byte_histogram(u8: torch.Tensor) -> torch.Tensor:
     """(256,) int64 counts of the bytes of a uint8 tensor, on its device
-    (the reference's ``np.bincount``; plain PyTorch on any device).
-    ``torch.bincount`` first reads the largest byte back to the host, so
-    on a CUDA device the host waits for the work queued before."""
-    if u8.numel():
-        _build.count_bus(d2h=u8.element_size())
-    return torch.bincount(u8, minlength=256)
+    (the reference's ``np.bincount``): S4 into a zeroed row, no wait."""
+    return byte_histogram(u8, torch.zeros(256, dtype=torch.int64, device=u8.device))
 
 
 def _prior_extra(hist: np.ndarray, params: Parameters,
@@ -774,8 +770,7 @@ def encode(
         slot = ups[sh.card].take()
         a, b, _ = span(sh)
         if use_prior:
-            hists[sh.card] += _byte_histogram(slot[: b - a])
-            _mark(rec, "histogram wait")
+            byte_histogram(slot[: b - a], hists[sh.card])
         crc32_device(slot[: b - a], crcs[sh.card][sh.i : sh.i + 1])
         if len(own[sh.card]) == 1:
             kept[sh.card] = slot

@@ -14,10 +14,14 @@
 // words, or its own bytes where it is stored raw.
 // S3 crc32 takes over container.compute_crc / verify_crc (:278, :574):
 // zlib's CRC-32 (reflected 0xEDB88320, init and final xor 0xFFFFFFFF).
+// S4 byteHistogram replaces no TPU kernel: the reference counts the bytes
+// for its prior with the host's np.bincount (redux_tpu/api.py:271); here
+// the counts of a share are added on the card into its int64 row, which
+// the host reads once after the last share.
 //
 // What bounds them: bytes.  S1 and S2 read each byte they place once and
-// write it once; S3 reads its input once, at a few integer operations a
-// byte.
+// write it once; S3 and S4 read their input once, at a few integer
+// operations a byte.
 //
 // S1, output-stationary like S2, a warp a row.  The wrapper checks the
 // offsets and lengths on the host (the header's, which the caller holds)
@@ -87,6 +91,27 @@
 // holds it back: the loads in flight (ptxas keeps a thread to 32
 // registers, about one 16-byte load ahead) and a launch's fixed cost: the
 // zeroing, the table fill and the tail.
+//
+// S4, counts a lane of its own.  Each lane owns a column of 256 u32 counts
+// in shared memory, bin b of lane l at word 32 b + l of its warp's 32 KiB,
+// so lane l only ever touches bank l: no two lanes of a warp meet in a
+// bank or at a word, whatever the bytes are.  Runs of one byte (a fax
+// page, runs of 0x61, text's spaces) then cost what random bytes cost, and
+// nothing needs merging before an atomic; the atomics (with no result, so
+// the thread does not wait for them) are only there because a lane's
+// plain read-modify-write would wait for its load.  The input is read as
+// 16-byte words from its first 16-byte boundary, coalesced over a grid-
+// stride loop (a warp's load is 512 neighbouring bytes), 8 loads a lane
+// issued a round ahead of the counting; the at most 15 bytes before the
+// boundary and after the last whole word are CTA 0's first warp's, a byte
+// a lane.  At the end the CTA sums each bin over its lanes (lane l of the
+// sum reading column (l + b) mod 32, one bank a lane) and adds it into the
+// int64 row with one 64-bit atomicAdd: integer sums are exact in any order.
+// The columns take 32 KiB a warp, so a CTA of 7 warps fills an SM's shared
+// memory; the grid follows n: one CTA an SM for a share, only the warps
+// the bytes fill (16 loads a lane at least) for a small file.  What holds
+// it back: 7 warps an SM to keep the loads in flight, and each CTA's
+// zeroing and sum of its columns, a few microseconds.
 #include "common.cuh"
 
 namespace {
@@ -107,6 +132,10 @@ constexpr long long kCrcTile = static_cast<long long>(kCrcThreads) * kCrcSegment
 constexpr int kCrcLevels = 9;  // log2(kCrcThreads): the tree's levels
 constexpr int kCrcBlock = kCrcThreads + 32;  // and the warp for the variable powers
 constexpr int kCrcAhead = 8;  // 16-byte loads a thread issues ahead of its lookups
+constexpr int kHistWarps = 7;  // S4: a CTA's most warps, 7 columns of 32 KiB fill an SM
+constexpr int kHistColumn = 256 * 32;  // u32 words of a warp's counts: 256 bins of 32 lanes
+constexpr int kHistLoads = 8;  // 16-byte loads a lane issues a round ahead of its counting
+constexpr long long kHistMinLoads = 16;  // a lane's least loads before the grid grows
 constexpr uint32_t kPoly = 0xEDB88320u;
 constexpr uint32_t kOne = 0x80000000u;  // x^0 (bit 31 the coefficient of x^0)
 // The constants (ops/staging.py crc_consts), in u32 words: the four
@@ -599,6 +628,82 @@ crc32_kernel(const uint8_t* __restrict__ buf, long long n, const uint32_t* __res
   }
 }
 
+// One count for each byte of w in the lane's column col (bin b at col[32 b]).
+__device__ __forceinline__ void count_bytes(uint32_t* col, uint32_t w) {
+  atomicAdd(col + 32 * (w & 0xFFu), 1u);
+  atomicAdd(col + 32 * ((w >> 8) & 0xFFu), 1u);
+  atomicAdd(col + 32 * ((w >> 16) & 0xFFu), 1u);
+  atomicAdd(col + 32 * (w >> 24), 1u);
+}
+
+__device__ __forceinline__ void count16(uint32_t* col, uint4 v) {
+  count_bytes(col, v.x);
+  count_bytes(col, v.y);
+  count_bytes(col, v.z);
+  count_bytes(col, v.w);
+}
+
+// The counts of buf's n bytes added into out[256]: head bytes before its
+// first 16-byte boundary, then m 16-byte words, then n - head - 16 m
+// bytes.  A lane's u32 counts hold at most the 16 bytes of each of its
+// ceil(m / (grid * threads)) words and two more: past a card's memory
+// before they could pass 2^32.
+__global__ void __launch_bounds__(32 * kHistWarps, 1)
+byteHistogram_kernel(const uint8_t* __restrict__ buf, long long n, long long head, long long m,
+                     unsigned long long* __restrict__ out) {
+  extern __shared__ uint4 hist4[];
+  uint32_t* const hist = reinterpret_cast<uint32_t*>(hist4);
+  const int tid = threadIdx.x, lane = tid & 31, threads = blockDim.x;
+  const int columns = threads / 32;
+  for (int q = tid; q < columns * kHistColumn / 4; q += threads) hist4[q] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  uint32_t* const col = hist + (tid >> 5) * kHistColumn + lane;
+  const uint4* const body = reinterpret_cast<const uint4*>(buf + head);
+  const long long stride = static_cast<long long>(gridDim.x) * threads;
+  long long i = static_cast<long long>(blockIdx.x) * threads + tid;
+  // Rounds of kHistLoads words a lane; the next round's loads go out
+  // before this round is counted.
+  uint4 v[kHistLoads];
+  bool full = i + (kHistLoads - 1) * stride < m;
+  if (full) {
+#pragma unroll
+    for (int j = 0; j < kHistLoads; ++j) v[j] = __ldg(body + i + j * stride);
+  }
+#pragma unroll 1
+  while (full) {
+    const long long next = i + kHistLoads * stride;
+    const bool again = next + (kHistLoads - 1) * stride < m;
+    uint4 u[kHistLoads];
+    if (again) {
+#pragma unroll
+      for (int j = 0; j < kHistLoads; ++j) u[j] = __ldg(body + next + j * stride);
+    }
+#pragma unroll
+    for (int j = 0; j < kHistLoads; ++j) count16(col, v[j]);
+#pragma unroll
+    for (int j = 0; j < kHistLoads; ++j) v[j] = u[j];
+    i = next;
+    full = again;
+  }
+#pragma unroll 1
+  for (; i < m; i += stride) count16(col, __ldg(body + i));
+  if (blockIdx.x == 0 && tid < 32) {  // the bytes outside the words, a byte a lane
+    const long long tail = head + 16 * m;
+    if (lane < head) atomicAdd(col + 32 * buf[lane], 1u);
+    if (lane < n - tail) atomicAdd(col + 32 * buf[tail + lane], 1u);
+  }
+  __syncthreads();
+  for (int b = tid; b < 256; b += threads) {
+    unsigned long long s = 0;
+    for (int w = 0; w < columns; ++w) {
+      const uint32_t* const bin = hist + w * kHistColumn + 32 * b;
+#pragma unroll 8
+      for (int l = 0; l < 32; ++l) s += bin[(l + b) & 31];
+    }
+    if (s != 0) atomicAdd(out + b, s);
+  }
+}
+
 }  // namespace
 
 // out 16-byte aligned (the wrapper's): B rows of rb bytes; offs and lens
@@ -670,5 +775,32 @@ RXT_API int rxt_crc32(const void* buf, long long n, const void* consts, void* ou
   crc32_kernel<<<static_cast<unsigned>(grid), kCrcBlock, kCrcSmem, s>>>(
       static_cast<const uint8_t*>(buf), n, static_cast<const uint32_t*>(consts), frame, n_tiles,
       static_cast<int>(per_cta), static_cast<int>(end16 - (b + n)), static_cast<uint32_t*>(out));
+  return cudaGetLastError();
+}
+
+// Adds the counts of buf's n bytes (any alignment) into out, 256 int64 on
+// the card.
+RXT_API int rxt_byte_histogram(const void* buf, long long n, void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || n <= 0) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  constexpr int kMaxSmem = kHistWarps * kHistColumn * 4;
+  err = cudaFuncSetAttribute(byteHistogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+  if (err != cudaSuccess) return err;
+  const auto b = reinterpret_cast<unsigned long long>(buf);
+  const long long head = min(static_cast<long long>((16 - (b & 15)) & 15), n);
+  const long long m = (n - head) / 16;
+  // Warps for kHistMinLoads words a lane, a CTA of at most kHistWarps an
+  // SM: one CTA's columns fill the SM's shared memory.
+  const long long lanes = max(1LL, (m + kHistMinLoads - 1) / kHistMinLoads);
+  const long long warps_needed = (lanes + 31) / 32;
+  const int warps = static_cast<int>(min(warps_needed, static_cast<long long>(kHistWarps)));
+  const long long grid = min((warps_needed + warps - 1) / warps, static_cast<long long>(sms));
+  byteHistogram_kernel<<<static_cast<unsigned>(grid), 32 * warps, warps * kHistColumn * 4,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(buf), n, head, m, static_cast<unsigned long long*>(out));
   return cudaGetLastError();
 }

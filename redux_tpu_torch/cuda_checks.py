@@ -1,5 +1,5 @@
 """On-card checks of the kernels: each against its plain PyTorch version
-(K1-K5, :func:`compare_kernels`; the staging kernels S1-S3,
+(K1-K5, :func:`compare_kernels`; the staging kernels S1-S4,
 :func:`compare_staging`), the port against the golden archives, and the
 generic-model coders against K1, K3 and the oracle
 (:func:`check_generic`, which also runs on CPU tensors).
@@ -34,9 +34,10 @@ from .ops.encode_m import encode_blocks_m, encode_blocks_m_plain
 from .ops.generic import (TorchModel, decode_blocks_generic, dense_torch_model,
                           encode_blocks_generic, make_generic_coders, static_torch_model)
 from .ops.model import model_lohi, model_lohi_plain, precompute_encode_model
-from .ops.staging import (CRC_SEGMENT, CRC_THREADS, crc32, crc32_plain, gather_rows,
-                          gather_rows_plain, launch_crc32, launch_gather_rows,
-                          launch_splice_payload, splice_payload, splice_payload_plain, splice_rows)
+from .ops.staging import (CRC_SEGMENT, CRC_THREADS, byte_histogram, byte_histogram_plain, crc32,
+                          crc32_plain, gather_rows, gather_rows_plain, launch_byte_histogram,
+                          launch_crc32, launch_gather_rows, launch_splice_payload, splice_payload,
+                          splice_payload_plain, splice_rows)
 from .params import Parameters
 from .testdata import golden_input, incompressible, text_like
 
@@ -47,8 +48,8 @@ KERNELS = {
     "encode_fused": ("redux_tpu_torch/csrc/encode_fused.cu", "redux_tpu/ops/pallas_encode.py:86"),
     "encode_m": ("redux_tpu_torch/csrc/encode_m.cu", "redux_tpu/ops/pallas_encode.py:564"),
 }
-# The staging kernels around K1-K3 (ops/staging.py), and the host code of
-# redux_tpu/api.py that each takes over.
+# The staging kernels around K1-K3 (ops/staging.py), keyed by their launch
+# counters' names, and the host code of redux_tpu/api.py that each takes over.
 STAGING = {
     "gather_rows": ("redux_tpu_torch/csrc/staging.cu",
                     "redux_tpu/api.py:141 (_gather_slices; decode's _stage :460, raw splice :563)"),
@@ -56,6 +57,8 @@ STAGING = {
                        "redux_tpu/api.py:357 (encode's payload splice)"),
     "crc32": ("redux_tpu_torch/csrc/staging.cu",
               "redux_tpu/api.py:278 (container.compute_crc; decode's verify_crc :574)"),
+    "histogram": ("redux_tpu_torch/csrc/staging.cu",
+                  "no TPU kernel: redux_tpu/api.py:271 (the prior's np.bincount on the host)"),
 }
 # The encoders from symbols (K4, K5): kernel and plain version.
 SYMBOL_ENCODERS = {
@@ -84,11 +87,12 @@ OPS_PER_SYMBOL = {
 }
 # Integer operations a byte the staging kernels place: an index, a compare
 # and a shift or select (S1, S2); the table-driven CRC's xor, mask,
-# lookup and shift (S3).  S3's prefixes checked against zlib: around its
-# segment, a warp's 32 segments and a CTA's tile.  None of the three has a PyTorch call that
-# computes it (a ragged gather, the payload splice, CRC-32), so each
-# library time is None too.
-OPS_PER_BYTE = {"gather_rows": 3, "splice_payload": 3, "crc32": 4}
+# lookup and shift (S3); the byte's extract, its bin's address and the
+# shared-memory add (S4).  S3's prefixes checked against zlib: around its
+# segment, a warp's 32 segments and a CTA's tile.  S1-S3 have no PyTorch
+# call that computes them (a ragged gather, the payload splice, CRC-32),
+# so their library time is None; S4's is ``torch.bincount`` on the card.
+OPS_PER_BYTE = {"gather_rows": 3, "splice_payload": 3, "crc32": 4, "histogram": 3}
 CRC_EDGES = (0, 1, CRC_SEGMENT - 1, CRC_SEGMENT, CRC_SEGMENT + 1, 32 * CRC_SEGMENT + 1,
              CRC_THREADS * CRC_SEGMENT - 1, CRC_THREADS * CRC_SEGMENT + 1)
 ROW_BYTES = 4 * 258  # the int32 initial row
@@ -473,7 +477,7 @@ def encode_memory_bound(n_bytes: int, block_size: int, params: Parameters,
 
 def compare_staging(data: bytes, device, block_size: int | None = None,
                     time_plain: bool = True, reps: int = 3) -> dict:
-    """S1-S3 against their plain versions at the shapes ``api`` gives them
+    """S1-S4 against their plain versions at the shapes ``api`` gives them
     for ``data`` at the shipped defaults (tpu_wide, delta 16, the prior),
     in one lane chunk each way; tolerance 0.
 
@@ -484,13 +488,19 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
     be the archive's.  S1 (``gather_rows``):
     every lane of the archive sorted by coded length, as ``decode``
     stages them (words; they must also be K2's words), and the raw
-    blocks' rows (bytes; they must also be the input's blocks).  Returns
+    blocks' rows (bytes; they must also be the input's blocks).  S4
+    (``histogram``): the input on the card as pass 1 counts it, and from
+    1, 7 and 15 bytes in, each into a zeroed row and once more into a row
+    that already holds counts, equal to the plain version on the same
+    bytes on the host.  Returns
     per kernel ``max_abs_err``, ``ms`` (the kernel's launch alone, the
     mean of ``reps``, CUDA events, :func:`cuda_ms`; S1's in word mode,
     ``ms_bytes`` in byte mode, None without raw blocks), ``ms_call`` (the
     wrapper with its checks until its result is on the card, wall clock,
     :func:`call_ms`), ``plain_ms`` (one run,
-    timed when ``time_plain`` on the card) and the bound of what it moves
+    timed when ``time_plain`` on the card; S4's on the host, wall clock),
+    ``library_ms`` (S4's ``torch.bincount`` on the card, :func:`cuda_ms`;
+    None for S1-S3) and the bound of what it moves
     (:func:`bound`); and ``raw_rows``, the raw blocks."""
     dev = torch.device(device)
     timed = time_plain and dev.type == "cuda"
@@ -524,7 +534,9 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
     out["crc32"] = {"max_abs_err": abs(got - plain),
                     "ms": kernel_ms(lambda: launch_crc32(flat, scratch)),
                     "ms_call": kernel_ms(lambda: crc32(flat), call_ms), "plain_ms": plain_ms,
+                    "library_ms": None,
                     **bound(len(data) + 4, OPS_PER_BYTE["crc32"] * len(data))}
+    out["histogram"] = _compare_histogram(data, flat, timed, kernel_ms)
 
     words, bl, ovf = encode_blocks_ranked(x.syms, x.lens, x.init_cum, p, x.n_words, d)
     raw = ovf | (bl >= x.lens)
@@ -542,7 +554,7 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
                              "ms": kernel_ms(lambda: launch_splice_payload(words, x.syms, *rows,
                                                                            pay_p)),
                              "ms_call": kernel_ms(lambda: splice_payload(*args), call_ms),
-                             "plain_ms": plain_ms,
+                             "plain_ms": plain_ms, "library_ms": None,
                              **bound(2 * total + 9 * b, OPS_PER_BYTE["splice_payload"] * total)}
     del pay, pay_p, stored, rows
 
@@ -564,7 +576,7 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
                           "ms": kernel_ms(lambda: launch_gather_rows(arch, *table, staged_p, True)),
                           "ms_call": kernel_ms(lambda: gather_rows(arch, offs, lens, wcap, True),
                                                call_ms),
-                          "plain_ms": plain_ms, "wcap": wcap,
+                          "plain_ms": plain_ms, "library_ms": None, "wcap": wcap,
                           **bound(moved + 16 * b + 4 * b * wcap,
                                   OPS_PER_BYTE["gather_rows"] * 4 * b * wcap)}
     del staged, staged_p, k2, words
@@ -585,6 +597,39 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
     out["gather_rows"]["edge_cases"] = gather_edge_cases(arch, (k, 1022, 37), (wcap, 13))
     out["raw_rows"] = int(ri.size)
     return out
+
+
+def _compare_histogram(data: bytes, flat: torch.Tensor, timed: bool, kernel_ms) -> dict:
+    """S4 for :func:`compare_staging`: ``flat``, the bytes of ``data`` on
+    its device, counted from 0, 1, 7 and 15 bytes in (any alignment),
+    each against :func:`byte_histogram_plain` on the same bytes on the
+    host; the whole input added once more into the row from 1 byte in
+    (a row that already holds counts)."""
+    dev = flat.device
+    host = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+
+    def zeros(where):
+        return torch.zeros(256, dtype=torch.int64, device=where)
+
+    err, want = 0, {}
+    for a in (0, 1, 7, 15):
+        want[a] = byte_histogram_plain(host[a:], zeros("cpu"))
+        got = byte_histogram(flat[a:], zeros(dev)).cpu()
+        err = max(err, _max_abs(got, want[a]))
+    both = byte_histogram(flat, byte_histogram(flat[1:], zeros(dev))).cpu()
+    err = max(err, _max_abs(both, want[0] + want[1]))
+    _require(err == 0, f"byte_histogram differs from its plain version (max |diff| {err})")
+    plain_ms = None
+    if timed:
+        t0 = time.perf_counter()
+        byte_histogram_plain(host, zeros("cpu"))
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    row = zeros(dev)
+    return {"max_abs_err": err, "ms": kernel_ms(lambda: launch_byte_histogram(flat, row)),
+            "ms_call": kernel_ms(lambda: byte_histogram(flat, row), call_ms),
+            "plain_ms": plain_ms,
+            "library_ms": kernel_ms(lambda: torch.bincount(flat, minlength=256)),
+            **bound(len(data), OPS_PER_BYTE["histogram"] * len(data))}
 
 
 def gather_edge_cases(buf: torch.Tensor, byte_widths, word_widths, seed: int = SEED) -> int:
@@ -618,7 +663,7 @@ def gather_edge_cases(buf: torch.Tensor, byte_widths, word_widths, seed: int = S
 
 
 def check_staging(device: torch.device, n_blocks: int = 1024) -> dict:
-    """Phase 3 for S1-S3 (:func:`compare_staging`): ``n_blocks`` blocks of
+    """Phase 3 for S1-S4 (:func:`compare_staging`): ``n_blocks`` blocks of
     4096 of :func:`phase3_data` (raw blocks, a short last block, a length
     that is not a multiple of ``CRC_SEGMENT``), and 101 blocks of 1022
     bytes (a block size that is not a multiple of 4)."""

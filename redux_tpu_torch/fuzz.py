@@ -162,8 +162,8 @@ def _block(rng: np.random.Generator, k: int) -> bytes:
 
 
 def _prior(data: bytes, params: Parameters, budget: int):
-    """``api.encode``'s prior for ``data``: its byte histogram (the plain
-    ``torch.bincount`` on the host) quantized with ``budget``."""
+    """``api.encode``'s prior for ``data``: its byte histogram (S4's plain
+    version on the host) quantized with ``budget``."""
     hist = api._byte_histogram(api._host_u8(data)).numpy()
     return api._prior_extra(hist, params, budget)
 

@@ -1,4 +1,4 @@
-"""S1-S3 — the main path's data on the card around K1-K3.
+"""S1-S4 — the main path's data on the card around K1-K3.
 
 Counterpart: the host code of ``redux_tpu/api.py`` that stages the
 kernels' data (the reference did this on the host because of its TPU's
@@ -18,7 +18,14 @@ encode's payload assembly (:357-399), and ``container.compute_crc`` /
   ``CRC_SEGMENT``-byte segment and the GF(2) combine of the segments'
   CRCs (:func:`combine_crcs`, zlib's ``crc32_combine``);
   :func:`crc32_device` leaves it on the device without waiting.  The
-  kernel's constant tables (:func:`crc_consts`) are built here.
+  kernel's constant tables (:func:`crc_consts`) are built here;
+- :func:`byte_histogram` (S4): the counts of a byte tensor's 256 values
+  added into an int64 row on its device, with no wait and nothing read
+  back (the prior's histogram, a share at a time).  It replaces no TPU
+  kernel: the reference counts on the host with ``np.bincount``
+  (``redux_tpu/api.py:271``).  It is bound by reading its ``n`` bytes
+  once; each lane counts into a column of its own in shared memory, so
+  runs of one byte contend for nothing (``csrc/staging.cu``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel on the current stream for CUDA tensors, counting the launch.
@@ -411,3 +418,39 @@ def launch_crc32(u8, out) -> None:
     err = _build.lib().rxt_crc32(u8.data_ptr(), u8.shape[0], _consts_on(dev).data_ptr(),
                                  out.data_ptr(), dev.index or 0, _build.stream_of(dev))
     _build.check(err, "rxt_crc32")
+
+
+def byte_histogram_plain(u8: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`byte_histogram`, for CPU
+    tensors (arguments already checked)."""
+    return out.add_(torch.bincount(u8, minlength=256))
+
+
+def byte_histogram(u8: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Adds the counts of each byte value of a ``(N,)`` uint8 tensor into
+    ``out``, a contiguous ``(256,)`` int64 tensor on its device, and
+    returns ``out``: ``np.bincount``'s counts, any alignment of ``u8``.
+    CPU tensors take the plain version; for CUDA tensors the kernel is
+    queued on the current stream, with no wait and no read to the host.
+    Raises :class:`InvalidInputError` for another ``out``."""
+    dev = u8.device
+    expect(u8, "u8", torch.uint8, (None,), dev)
+    if not (isinstance(out, torch.Tensor) and out.dtype == torch.int64 and out.shape == (256,)
+            and out.device == dev and out.is_contiguous()):
+        raise InvalidInputError(f"byte_histogram: out must be a contiguous (256,) int64 tensor "
+                                f"on {dev}")
+    if not kernel_device(dev):
+        return byte_histogram_plain(u8, out)
+    if u8.shape[0]:
+        launch_byte_histogram(u8, out)
+        _build.count_launch("histogram", dev)
+    return out
+
+
+def launch_byte_histogram(u8, out) -> None:
+    """S4's launch alone: adds the counts of ``u8`` into ``out``, unchecked
+    (see :func:`launch_gather_rows`)."""
+    dev = u8.device
+    err = _build.lib().rxt_byte_histogram(u8.data_ptr(), u8.shape[0], out.data_ptr(),
+                                          dev.index or 0, _build.stream_of(dev))
+    _build.check(err, "rxt_byte_histogram")

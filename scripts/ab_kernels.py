@@ -42,6 +42,20 @@ both instantiations
 two routes' symbols must be equal.  Then per checkout the median ms of
 each route at each B, and the crossover: the least B at which the thread
 route is faster.
+
+    python3 scripts/ab_kernels.py DIR [DIR ...] --histogram [--reps 5]
+
+times pass 1's byte histogram instead: S4 (``ops.staging``'s
+``launch_byte_histogram``, the kernel alone, and ``byte_histogram``, a
+call and a wait, ``_call``) where the checkout has it, ``torch.bincount``
+(CUDA events around a call, its host read of the largest byte inside, and
+the wall clock of a call, ``_call``) and the plain version on the host
+(``byte_histogram_plain``, else ``torch.bincount``, on a CPU tensor), over
+21,504 and 768,771 bytes (the Calgary corpus's smallest and largest
+files), 64 MiB and 256 MiB (a lane chunk) of ``text_like``, ``mixed`` and
+``incompressible`` (seed 2024) and of one byte value (0x61), each beside
+its bound: the bytes read once at 3.35 TB/s.  Every count must equal
+``np.bincount``'s.
 """
 
 from __future__ import annotations
@@ -59,6 +73,9 @@ SHAPES = ("1024x4096", "16384x4096", "65536x4096")
 STAGING = ("gather_rows", "splice_payload", "crc32")
 ROUTE_BLOCKS = (1, 6, 48, 188, 512, 1024, 2048, 3072, 4096, 8192, 16384)
 ROUTE_PARAMS = {"tpu_wide": (8, 20, 22), "ref30": (8, 30, 32)}
+HIST_SIZES = {"21504": 21_504, "768771": 768_771, "64MiB": 64 << 20, "256MiB": 256 << 20}
+HIST_KINDS = ("text_like", "mixed", "incompressible", "run_61")
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def device_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -226,6 +243,75 @@ def route_worker(root: Path, reps: int, blocks: tuple) -> None:
                       "ptxas": _build.resource_usage(), "ms": times, "digests": digests}))
 
 
+def event_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn()`` between CUDA events recorded around each call:
+    for a call that waits for the card inside (``torch.bincount``)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def histogram_worker(root: Path, reps: int) -> None:
+    """Pass 1's byte histogram over :data:`HIST_SIZES` of each of
+    :data:`HIST_KINDS` (module docstring)."""
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    import redux_tpu_torch
+    from redux_tpu_torch import _build, testdata
+    from redux_tpu_torch.ops import staging
+
+    if not Path(redux_tpu_torch.__file__).resolve().is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported {redux_tpu_torch.__file__}, not the one under {root}")
+    dev = torch.device("cuda", 0)
+    own = hasattr(staging, "launch_byte_histogram")
+    if own:
+        _build.lib()
+    plain = getattr(staging, "byte_histogram_plain",
+                    lambda u8, out: out.add_(torch.bincount(u8, minlength=256)))
+    times, digests = {}, {}
+    for kind in HIST_KINDS:
+        n_max = max(HIST_SIZES.values())
+        if kind == "run_61":
+            host = np.full(n_max, 0x61, dtype=np.uint8)
+        else:
+            host = np.frombuffer(getattr(testdata, kind)(n_max, 2024), np.uint8)
+        full = torch.from_numpy(host).to(dev)
+        for label, n in HIST_SIZES.items():
+            t, t_host = full[:n], torch.from_numpy(host[:n])
+            want = np.bincount(host[:n], minlength=256)
+            row = torch.zeros(256, dtype=torch.int64, device=dev)
+            res = {"bound": n / PEAK_BYTES_PER_S * 1e3}
+            if own:
+                res["s4"] = device_ms(lambda: staging.launch_byte_histogram(t, row), reps)
+                res["s4_call"] = wall_ms(lambda: staging.byte_histogram(t, row), reps)
+                got = staging.byte_histogram(t, row.zero_()).cpu().numpy()
+            else:
+                got = torch.bincount(t, minlength=256).cpu().numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{kind}/{label}: counts differ from np.bincount")
+            res["bincount"] = event_ms(lambda: torch.bincount(t, minlength=256), reps)
+            res["bincount_call"] = wall_ms(lambda: torch.bincount(t, minlength=256), reps)
+            res["plain"] = wall_ms(lambda: plain(t_host, torch.zeros(256, dtype=torch.int64)),
+                                   reps)
+            times[f"{kind}/{label}"] = res
+            digests[f"{kind}/{label}"] = hashlib.sha256(got.tobytes()).hexdigest()[:16]
+    print(json.dumps({"root": str(root), "device": torch.cuda.get_device_name(0),
+                      "ptxas": _build.resource_usage() if own else [], "ms": times,
+                      "digests": digests}))
+
+
 def crossover(med: dict, name: str, blocks: tuple):
     """The least B of ``blocks`` at which the thread route beats the warp
     route in ``med`` (None if it never does)."""
@@ -240,12 +326,16 @@ def main() -> int:
     ap.add_argument("--routes", action="store_true", help="time K3's two routes over B")
     ap.add_argument("--blocks", default=",".join(map(str, ROUTE_BLOCKS)),
                     help="the block counts of --routes, comma-separated")
+    ap.add_argument("--histogram", action="store_true",
+                    help="time S4 against torch.bincount over sizes and kinds")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     blocks = tuple(int(b) for b in args.blocks.split(","))
     if args.worker:
         if args.routes:
             route_worker(args.dirs[0], args.reps, blocks)
+        elif args.histogram:
+            histogram_worker(args.dirs[0], args.reps)
         else:
             worker(args.dirs[0], args.reps)
         return 0
@@ -256,7 +346,8 @@ def main() -> int:
     for d in [*args.dirs, *reversed(args.dirs)]:
         out = subprocess.run([sys.executable, __file__, str(d), "--worker", "--reps",
                               str(args.reps), *(["--routes", "--blocks", args.blocks]
-                                                if args.routes else [])],
+                                                if args.routes else []),
+                              *(["--histogram"] if args.histogram else [])],
                              check=True, capture_output=True, text=True).stdout
         res = json.loads(out.strip().splitlines()[-1])
         print(json.dumps({k: res[k] for k in ("root", "ptxas", "ms")}))

@@ -669,6 +669,111 @@ def test_crc32_kernel_at_256_mib(cuda_device):
     assert redux_tpu_torch.launch_counts()["crc32"] == 4
 
 
+HIST_LENGTHS = (1, 15, 16, 17, 4099, 21_504, 768_771, (64 << 20) + 3)
+
+
+def _hist_input(kind: str, n: int, dev: torch.device) -> torch.Tensor:
+    """``n`` bytes of a content kind on ``dev``: ``testdata``'s generators,
+    or one byte value throughout (``zeros``, ``run_61``)."""
+    from redux_tpu_torch import testdata
+
+    if kind in ("zeros", "run_61"):
+        return torch.full((n,), 0 if kind == "zeros" else 0x61, dtype=torch.uint8, device=dev)
+    data = getattr(testdata, kind)(n, 2024)
+    return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["text_like", "mixed", "incompressible", "zeros", "run_61"])
+def test_byte_histogram_kernel_equals_np_bincount(cuda_device, kind):
+    """S4 against ``np.bincount``, tolerance 0: 1 byte to 64 MiB + 3 at
+    starts 0-15 bytes past a 16-byte boundary, then 256 MiB + 7 (an encode
+    chunk and a tail) at starts 0 and 5; one byte value throughout as
+    well as text, mixed and incompressible bytes.  Each call adds into a
+    row that already holds counts; one launch a call."""
+    import numpy as np
+
+    import redux_tpu_torch
+    from redux_tpu_torch.errors import InvalidInputError
+    from redux_tpu_torch.ops import staging
+
+    big = (256 << 20) + 7
+    t = _hist_input(kind, big + 16, cuda_device)
+    host = t.cpu().numpy()
+    redux_tpu_torch.reset_launch_counts()
+    calls = 0
+    for n in HIST_LENGTHS:
+        for a in range(16) if n < (1 << 20) else (0, 1, 7, 15):
+            row = torch.arange(256, dtype=torch.int64, device=cuda_device)
+            got = staging.byte_histogram(t[a : a + n], row).cpu().numpy() - np.arange(256)
+            assert np.array_equal(got, np.bincount(host[a : a + n], minlength=256)), (n, a)
+            calls += 1
+    for a in (0, 5):
+        got = staging.byte_histogram(t[a : a + big], torch.zeros_like(row)).cpu().numpy()
+        assert np.array_equal(got, np.bincount(host[a : a + big], minlength=256)), (big, a)
+        calls += 1
+    if kind in ("zeros", "run_61"):
+        assert got[0 if kind == "zeros" else 0x61] == big
+    assert redux_tpu_torch.launch_counts()["histogram"] == calls
+    assert staging.byte_histogram(t[:0], row) is row  # an empty tensor launches nothing
+    with pytest.raises(InvalidInputError):  # a row on the host: refused
+        staging.byte_histogram(t[:16], torch.zeros(256, dtype=torch.int64))
+    assert redux_tpu_torch.launch_counts()["histogram"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["dev_dev", "every_card"])
+def test_byte_histogram_on_each_card_of_a_list(cuda_device, which):
+    """S4 on each card of a device list, into that card's own row, equal to
+    ``np.bincount``; each card counts its own launches."""
+    import numpy as np
+
+    import redux_tpu_torch
+    from redux_tpu_torch import testdata
+    from redux_tpu_torch.ops import staging
+
+    data = testdata.text_like((3 << 20) + 5, 29)
+    want = np.bincount(np.frombuffer(data, np.uint8), minlength=256)
+    devices = _device_list(which, cuda_device)
+    redux_tpu_torch.reset_launch_counts()
+    for d in devices:
+        t = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(d)
+        got = staging.byte_histogram(t[1:], torch.zeros(256, dtype=torch.int64, device=d))
+        assert got.device == t.device
+        assert np.array_equal(got.cpu().numpy(), want - np.bincount([data[0]], minlength=256))
+    for d in dict.fromkeys(devices):
+        assert redux_tpu_torch.launch_counts(d)["histogram"] == devices.count(d)
+
+
+@pytest.mark.cuda
+def test_main_path_counts_bytes_on_the_card_once_a_share(cuda_device, monkeypatch):
+    """``api.encode`` of 1 MiB of ``mixed`` over two lane chunks (cut to
+    128 blocks of 4096): S4 launches once a share on card 0, neither
+    ``torch.bincount`` nor the plain version runs, and the archive is the
+    CPU path's byte for byte."""
+    from redux_tpu_torch import _build, api, testdata
+    from redux_tpu_torch.ops import staging
+
+    k = 4096
+    data = testdata.mixed((1 << 20) - 999, 31)
+    monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * k)
+    want = api.encode(data, block_size=k, device="cpu")
+    n_shares = sum(len(step) for step in api._shares(-(-len(data) // k), 128, 1))
+    assert n_shares == 2
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card's path counted bytes off the kernel")
+
+    monkeypatch.setattr(torch, "bincount", refuse)
+    monkeypatch.setattr(staging, "byte_histogram_plain", refuse)
+    _build.card_launches.clear()
+    arch = api.encode(data, block_size=k, device=cuda_device)
+    assert _build.card_launches["histogram", 0] == n_shares
+    assert arch == want
+    monkeypatch.undo()
+    assert api.decode(arch, device=cuda_device) == data
+
+
 def _splice_case(rng, b, k, n_words, wire, raw):
     blocks = torch.from_numpy(rng.integers(0, 256, (b, k), dtype=np.uint8))
     words = torch.from_numpy(rng.integers(-2**31, 2**31, (b, n_words))).to(torch.int32)
@@ -825,7 +930,8 @@ def test_device_lists_on_the_card(cuda_device, monkeypatch, which):
 
     for mod, name in ((model, "model_lohi_plain"), (encode, "encode_blocks_plain"),
                       (decode, "decode_blocks_plain"), (staging, "gather_rows_plain"),
-                      (staging, "splice_payload_plain"), (staging, "crc32_plain")):
+                      (staging, "splice_payload_plain"), (staging, "crc32_plain"),
+                      (staging, "byte_histogram_plain")):
         monkeypatch.setattr(mod, name, refuse)
     cards = api._cards(devices)
     redux_tpu_torch.reset_launch_counts()
@@ -838,7 +944,7 @@ def test_device_lists_on_the_card(cuda_device, monkeypatch, which):
     for sh in (sh for step in steps for sh in step):
         w, raw = want_counts[cards[sh.card]], header.raw[sh.s0 : sh.s1]
         coded = int((~raw).any())
-        for name in ("model_values", "encode", "splice_payload"):
+        for name in ("model_values", "encode", "splice_payload", "histogram"):
             w[name] += 1
         w["decode"] += coded
         w["gather_rows"] += coded + int(raw.any())

@@ -284,7 +284,7 @@ def test_port_imports_neither_jax_nor_reference():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
     assert set(redux_tpu_torch.launch_counts()) == {
         "model_values", "encode", "decode", "encode_fused", "encode_m",
-        "gather_rows", "splice_payload", "crc32"}
+        "gather_rows", "splice_payload", "crc32", "histogram"}
 
 
 def test_build_report_names_each_kernel(tmp_path, monkeypatch):

@@ -36,8 +36,7 @@ CASES = {
 # Every part a call can mark, and those only the card's path has: its
 # pinned slots and the waits for their events.
 PARTS = {"stage", "copy", "slot wait", "fetch wait", "lengths wait", "sums wait",
-         "histogram wait", "prefault wait", "pin", "alloc", "parse", "lanes", "prior", "header", "check",
-         "launch"}
+         "prefault wait", "pin", "alloc", "parse", "lanes", "prior", "header", "check", "launch"}
 CARD_ONLY = {"pin", "slot wait", "fetch wait"}
 PHASES = {"enc": {"pass1", "pass2", "header"},
           "dec": {"parse", "upload", "kernels", "crc+fetch"}}
@@ -169,7 +168,6 @@ def bus_bytes_by_card(data: bytes, arch: bytes, devs, k: int = K,
     wire = header.byte_lens.astype(np.int64)  # a block's bytes in the payload
     coded = ~header.raw
     row = 4 * (header.params.symbol_count + 1)  # the initial cumulative row, int32
-    largest = n >= 4096  # the prior's histogram, by default
     out = {"enc": [], "dec": []}
     for mine in own:
         busy, shares = bool(mine), len(mine)
@@ -180,11 +178,11 @@ def bus_bytes_by_card(data: bytes, arch: bytes, devs, k: int = K,
         # Encode: the entry's shares' bytes up once, again where it has
         # more than one; the row, the blocks' lengths (int32) and S2's
         # table (int32 length, bool flag) up; its payload, its histogram
-        # (256 int64), the largest byte of each share (which
-        # ``torch.bincount`` reads back), the CRCs (int32 a share) and the
-        # wire lengths and flags (two int32 a block) down.
+        # (256 int64, added up on the device, share by share), the CRCs
+        # (int32 a share) and the wire lengths and flags (two int32 a
+        # block) down.
         out["enc"].append((share_bytes * (1 if shares == 1 else 2) + row * busy + 9 * blocks,
-                           payload + 2048 * busy + (largest + 4) * shares + 8 * blocks))
+                           payload + 2048 * busy + 4 * shares + 8 * blocks))
         # Decode: its shares' slices of the payload and the row up, and a
         # block's S1 offset and length (two int64), its row index (int64)
         # and a coded block's symbol count (int32); its output and the

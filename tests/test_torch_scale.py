@@ -87,8 +87,7 @@ def test_text_like_is_a_prefix_of_longer_text_like():
 
 @pytest.mark.parametrize("n", [4096, 70_001, 300_000])
 def test_prior_in_segments_equals_the_one_shot_histogram(n, monkeypatch):
-    """The byte histogram (``torch.bincount``, the device histogram's plain
-    version) summed over encode's lane chunks of 128 blocks of 256 bytes
+    """The byte histogram (S4's plain version, ``torch.bincount``) summed over encode's lane chunks of 128 blocks of 256 bytes
     gives the prior of the one-shot ``np.bincount``."""
     data = testdata.mixed(n, 11)
     params = Parameters.tpu_wide()

@@ -1,6 +1,7 @@
-"""S1-S3, the staging kernels of the main path (``redux_tpu_torch/ops/staging.py``),
+"""S1-S4, the staging kernels of the main path (``redux_tpu_torch/ops/staging.py``),
 through their plain versions on the CPU: the row gather against a numpy
-slice loop, the crc32 against ``zlib.crc32``, the payload splice against
+slice loop, the crc32 against ``zlib.crc32``, the byte histogram (and the
+kernel's algorithm, lane by lane) against ``np.bincount``, the payload splice against
 the payload ``container.build_archive`` and the JAX package's
 ``api.encode`` write; and ``api.encode`` / ``decode`` over several lane
 chunks against the JAX package, with raw blocks and a short last block.
@@ -478,6 +479,143 @@ def test_gather_launch_teams():
     assert _gather_launch(3, 37, 132) == (1, 1)
 
 
+def _bincount(data) -> np.ndarray:
+    return np.bincount(np.frombuffer(bytes(data), np.uint8), minlength=256).astype(np.int64)
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 4095, 4099])
+def test_byte_histogram_equals_np_bincount(n):
+    """S4's plain version into a zeroed row, from random bytes and from
+    skewed text, against ``np.bincount``; the row is the one returned."""
+    for data in (np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8).tobytes(),
+                 testdata.text_like(n, n + 1)):
+        out = torch.zeros(256, dtype=torch.int64)
+        got = staging.byte_histogram(torch.from_numpy(np.frombuffer(data, np.uint8).copy()), out)
+        assert got is out and got.dtype == torch.int64 and got.shape == (256,)
+        assert np.array_equal(got.numpy(), _bincount(data)), n
+
+
+@pytest.mark.parametrize("start", range(1, 16))
+def test_byte_histogram_of_views_1_to_15_bytes_in(start):
+    data = np.random.default_rng(start).integers(0, 256, 3 * 4096 + 40, dtype=np.uint8)
+    t = torch.from_numpy(data)
+    for a, b in ((start, data.size), (start, start + 4096 + 17), (start, start + 1)):
+        got = staging.byte_histogram(t[a:b], torch.zeros(256, dtype=torch.int64))
+        assert np.array_equal(got.numpy(), _bincount(data[a:b])), (a, b)
+
+
+def test_byte_histogram_adds_into_a_row_that_holds_counts():
+    """Each call adds its counts to what the row holds, as pass 1 adds a
+    share at a time; an empty tensor adds nothing."""
+    data = testdata.mixed(70_001, 3)
+    t = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    out = torch.arange(256, dtype=torch.int64) * 1000
+    for a, b in ((0, 1), (1, 4096), (4096, 4096), (4096, 70_001)):
+        staging.byte_histogram(t[a:b], out)
+    assert np.array_equal(out.numpy(), np.arange(256) * 1000 + _bincount(data))
+    assert np.array_equal(api._byte_histogram(t).numpy(), _bincount(data))
+
+
+@pytest.mark.parametrize("out", [
+    torch.zeros(256, dtype=torch.int32),  # not int64
+    torch.zeros(256, dtype=torch.float64),
+    torch.zeros(255, dtype=torch.int64),  # not (256,)
+    torch.zeros(257, dtype=torch.int64),
+    torch.zeros(1, 256, dtype=torch.int64),
+    torch.zeros(512, dtype=torch.int64)[::2],  # not contiguous
+    np.zeros(256, dtype=np.int64),  # not a tensor
+])
+def test_byte_histogram_refuses_another_row(out):
+    u8 = torch.arange(64, dtype=torch.uint8)
+    with pytest.raises(InvalidInputError):
+        staging.byte_histogram(u8, out)
+    with pytest.raises(ValueError):
+        staging.byte_histogram(u8.to(torch.int32), torch.zeros(256, dtype=torch.int64))
+
+
+HIST_WARPS, HIST_LOADS, HIST_MIN_LOADS = 7, 8, 16  # csrc/staging.cu kHistWarps, kHistLoads, ...
+
+
+def _histogram_launch(n: int, align: int, sms: int) -> tuple:
+    """``rxt_byte_histogram``'s launch for ``n`` bytes whose first byte lies
+    ``align`` bytes past a 16-byte boundary: (head bytes, 16-byte words,
+    warps a CTA, CTAs)."""
+    head = min((16 - align) % 16, n)
+    m = (n - head) // 16
+    warps_needed = -(-max(1, -(-m // HIST_MIN_LOADS)) // 32)
+    warps = min(warps_needed, HIST_WARPS)
+    return head, m, warps, min(-(-warps_needed // warps), sms)
+
+
+def _histogram_kernel_model(data: bytes, align: int, sms: int) -> np.ndarray:
+    """``byteHistogram_kernel``'s algorithm on the host, lane by lane, for
+    ``data`` at ``align`` bytes past a 16-byte boundary on a card of
+    ``sms`` SMs: each lane's column of 256 counts; its rounds of
+    ``HIST_LOADS`` words a grid stride apart while a whole round lies in
+    the words, then the rest one at a time; CTA 0's first warp's head and
+    tail bytes, a byte a lane; each CTA's sum of a bin over its lanes from
+    column ``(l + b) mod 32``, added into the row."""
+    n = len(data)
+    head, m, warps, grid = _histogram_launch(n, align, sms)
+    u8 = np.frombuffer(data, np.uint8)
+    words = u8[head : head + 16 * m].reshape(m, 16)
+    threads = 32 * warps
+    stride = grid * threads
+    cols = np.zeros((grid, warps, 256, 32), dtype=np.uint32)  # [cta, warp, bin, lane]
+    seen = np.zeros(m, dtype=np.int64)
+    for cta in range(grid):
+        for tid in range(threads):
+            w, lane = divmod(tid, 32)
+            i = cta * threads + tid
+            reads = []
+            while i + (HIST_LOADS - 1) * stride < m:
+                reads += [i + j * stride for j in range(HIST_LOADS)]
+                i += HIST_LOADS * stride
+            reads += list(range(i, m, stride))
+            for r in reads:
+                seen[r] += 1
+                np.add.at(cols[cta, w, :, lane], words[r], 1)
+            if cta == 0 and tid < 32:
+                tail = head + 16 * m
+                if lane < head:
+                    cols[cta, w, u8[lane], lane] += 1
+                if lane < n - tail:
+                    cols[cta, w, u8[tail + lane], lane] += 1
+    assert (seen == 1).all()  # every word read once
+    out = np.zeros(256, dtype=np.int64)
+    for cta in range(grid):
+        for b in range(256):
+            out[b] += sum(int(cols[cta, w, b, (lane + b) % 32])
+                          for w in range(warps) for lane in range(32))
+    return out
+
+
+def test_histogram_launch_follows_n():
+    """One warp for a few bytes, only the warps the bytes fill for a small
+    file, one CTA of 7 warps an SM for a share."""
+    assert _histogram_launch(5, 3, 132) == (5, 0, 1, 1)
+    assert _histogram_launch(21_504, 0, 132) == (0, 1344, 3, 1)
+    assert _histogram_launch(768_771, 0, 132) == (0, 48048, 7, 14)
+    assert _histogram_launch(256 << 20, 0, 132) == (0, 16 << 20, 7, 132)
+    assert _histogram_launch(256 << 20, 5, 132) == (11, (16 << 20) - 1, 7, 132)
+
+
+@pytest.mark.parametrize("align", [0, 1, 9, 15])
+def test_histogram_kernel_algorithm_equals_np_bincount(align):
+    """The kernel's algorithm (``_histogram_kernel_model``) equals
+    ``np.bincount`` around the head and tail bytes, a warp's and a CTA's
+    words and the grid's rounds, 0-15 bytes past a 16-byte boundary, one
+    byte value included, on cards of 1 and 3 SMs."""
+    rng = np.random.default_rng(align)
+    for n, sms in ((1, 1), (15, 1), (16, 1), (17, 1), (31, 1), (40, 1), (16 * 16 * 32 - 1, 1),
+                   (16 * 16 * 32 + 17, 1), (16 * 16 * 32 * 7 + 5, 3), (16 * 16 * 32 * 9, 1),
+                   (16 * 16 * 32 * 7 * 3 * 3 + 333, 3)):
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        assert np.array_equal(_histogram_kernel_model(data, align, sms), _bincount(data)), n
+    run = b"\x61" * (16 * 16 * 32 * 8 + 9)
+    assert np.array_equal(_histogram_kernel_model(run, align, 2), _bincount(run))
+
+
 def _random_triple(rng, b, k, n_words):
     blocks = torch.from_numpy(rng.integers(0, 256, (b, k), dtype=np.uint8))
     words = torch.from_numpy(rng.integers(-2**31, 2**31, (b, n_words))).to(torch.int32)
@@ -662,3 +800,35 @@ def test_small_inputs_equal_the_reference(n):
     arch = api.encode(data, device="cpu")
     assert arch == ref_api.encode(data)
     assert api.decode(arch, device="cpu") == data
+
+
+def test_staging_checks_hold_the_histogram():
+    """``cuda_checks.compare_staging`` holds S4 beside S1-S3 (the smoke's
+    kernel table reads its entry); on the CPU its glue runs and every
+    staging kernel is equal to its plain version."""
+    from redux_tpu_torch import cuda_checks
+
+    assert "histogram" in cuda_checks.STAGING
+    res = cuda_checks.check_staging(torch.device("cpu"), n_blocks=16)
+    for case in res.values():
+        assert all(case[k]["max_abs_err"] == 0 for k in cuda_checks.STAGING)
+        assert case["histogram"]["bytes"] == case["crc32"]["bytes"] - 4
+        assert all(case[k]["library_ms"] is None for k in cuda_checks.STAGING)
+
+
+def test_smoke_main_path_names_every_kernel_the_main_route_launches():
+    """Every launch counter is a kernel of ``chip_smoke.MAIN_PATH`` or one
+    that only the fused or sharded routes launch: the smoke's main route
+    requires each counter on its path to move and each other to stay 0."""
+    import importlib.util
+    import pathlib
+
+    import redux_tpu_torch
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    counters = set(redux_tpu_torch.launch_counts())
+    assert set(smoke.MAIN_PATH) <= counters
+    assert counters - set(smoke.MAIN_PATH) == {"encode_fused", "encode_m"}
