@@ -817,7 +817,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import redux_tpu_torch
-    from redux_tpu_torch import _build, api, cuda_checks, native, testdata
+    from redux_tpu_torch import _build, _pipeline, api, cuda_checks, native, testdata
 
     dev = torch.device("cuda", 0)
 
@@ -831,7 +831,7 @@ def main() -> int:
     print(f"device: {name}, torch {torch.__version__}, cuda {torch.version.cuda}")
     print(f"host: {os.cpu_count()} cpus, {torch.get_num_threads()} torch threads, kernel "
           f"{platform.release()}, transparent huge pages {_thp_mode()}; the results' pages "
-          f"prefaulted by {api._Output.TOUCH_THREADS} threads writing a byte a page")
+          f"prefaulted by {_pipeline._Output.TOUCH_THREADS} threads writing a byte a page")
 
     # Phase 2: build.
     t0 = time.perf_counter()

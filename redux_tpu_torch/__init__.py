@@ -10,7 +10,7 @@ numpy, never JAX.
 (``device="cuda"``): the kernels K1 model values, K2 coder, K3 decoder, or
 K4, the fused model + coder, under ``REDUX_TPU_ENC_FUSED=1``, and the
 staging kernels around them (``ops.staging``: S1 row gather, S2 payload
-splice, S3 crc32): the data crosses the bus once each way (an input of
+splice, S3 crc32, S4 byte histogram): the data crosses the bus once each way (an input of
 several lane chunks twice on its way in), and ``decode`` holds two ranges
 of blocks' worth on the card whatever the input's size.  Without a CUDA
 device they raise.  ``device="cpu"`` runs the kernels' plain PyTorch

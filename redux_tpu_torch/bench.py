@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import api, container, cuda_checks, launch_counts, native, testdata
+from ._pipeline import _host_u8
 from .ops.coder import words_to_bytes
 from .ops.decode import decode_blocks
 from .ops.encode import encode_blocks, encode_blocks_fused, encode_blocks_ranked, fused_selected
@@ -131,7 +132,7 @@ def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10, *,
     header = container.parse_table(archive)
     lanes = api._decode_lanes(header)
     order = api._by_length(lanes.coded_lens)
-    staged, klens_o = api._stage_lanes(api._host_u8(archive).to(dev), header, lanes, order)
+    staged, klens_o = api._stage_lanes(_host_u8(archive).to(dev), header, lanes, order)
 
     def decode_step():
         return decode_blocks(staged, klens_o, x.init_cum, params, k, DELTA)
@@ -149,7 +150,7 @@ def run_device_benchmark(data: bytes, block_size: int = 0, iters: int = 10, *,
     enc_bytes = torch.from_numpy(words_to_bytes(words).cpu().numpy())
     coded = np.flatnonzero(~lanes.raw)
     coded_lens = torch.from_numpy(lanes.coded_lens[coded])
-    stored = gather_rows(api._host_u8(archive), header.stream_offs[coded], lanes.coded_lens[coded],
+    stored = gather_rows(_host_u8(archive), header.stream_offs[coded], lanes.coded_lens[coded],
                          enc_bytes.shape[1])
     in_stream = torch.arange(enc_bytes.shape[1])[None, :] < coded_lens[:, None]
     verified = (np.array_equal(raw, lanes.raw)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import api, container, native, oracle
+from ._pipeline import _host_u8, _to_device
 from .convert import init_cum_from_numpy
 from .errors import ReduxError
 from .models.base import Model
@@ -156,6 +157,23 @@ def call_ms(fn, reps: int = 3, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def _blocks(data, s0: int, s1: int, block_size: int, device: torch.device) -> torch.Tensor:
+    """Blocks ``s0 .. s1`` of ``data`` as a ``(s1 - s0, block_size)`` uint8
+    tensor on ``device``, zero past the end of ``data``: one copy from
+    ``data``, the last block's tail zeroed on the device."""
+    a, b = s0 * block_size, min(s1 * block_size, len(data))
+    out = torch.empty((s1 - s0) * block_size, dtype=torch.uint8, device=device)
+    out[: b - a].copy_(_host_u8(data)[a:b])
+    out[b - a :].zero_()
+    return out.view(s1 - s0, block_size)
+
+
+def _byte_histogram(u8: torch.Tensor) -> torch.Tensor:
+    """(256,) int64 counts of the bytes of a uint8 tensor, on its device
+    (the reference's ``np.bincount``): S4 into a zeroed row, no wait."""
+    return byte_histogram(u8, torch.zeros(256, dtype=torch.int64, device=u8.device))
+
+
 class KernelInputs:
     """What the main path hands the kernels for ``data``: its blocks, the
     initial row (with the warm-start prior) and the word capacity."""
@@ -163,8 +181,8 @@ class KernelInputs:
     def __init__(self, data: bytes, params: Parameters, delta: int, block_size: int,
                  device: torch.device):
         lens = api._block_lens(len(data), block_size)
-        syms = api._blocks(data, 0, lens.size, block_size, device)
-        hist = api._byte_histogram(syms.view(-1)[: len(data)]).cpu().numpy()
+        syms = _blocks(data, 0, lens.size, block_size, device)
+        hist = _byte_histogram(syms.view(-1)[: len(data)]).cpu().numpy()
         ic = api._init_cum(params, api._prior_extra(hist, params, api.DEFAULT_PRIOR_BUDGET))
         self._place(syms, lens, ic, params, delta, device)
 
@@ -385,14 +403,14 @@ def check_chunk_streams(data: bytes, archive: bytes, device, chunks) -> list:
     header = container.parse_table(archive)
     p, k, d = header.params, header.block_size, header.delta
     ic = api._init_cum(p, header.prior_extra)
-    arch = api._host_u8(archive).to(device)
+    arch = _host_u8(archive).to(device)
     lens = api._block_lens(len(data), k)
     lanes = api._decode_lanes(header)
     chunk = api._lane_chunk(api.ENC_CHUNK_BYTES, k)
     out = []
     for c in chunks:
         s0, s1 = c * chunk, min((c + 1) * chunk, lens.size)
-        x = KernelInputs.of_blocks(api._blocks(data, s0, s1, k, device), lens[s0:s1], ic, p, d,
+        x = KernelInputs.of_blocks(_blocks(data, s0, s1, k, device), lens[s0:s1], ic, p, d,
                                    device)
         mine = encode_blocks_ranked(x.syms, x.lens, x.init_cum, p, x.n_words, d)
         (lo, hi), ms_model = plain_run(
@@ -513,7 +531,7 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
     archive = api.encode(data, block_size=k, device=dev)
     header = container.parse_table(archive)
     lanes = api._decode_lanes(header)
-    arch = api._host_u8(archive).to(dev)
+    arch = _host_u8(archive).to(dev)
     out = {}
 
     def kernel_ms(fn, timer=cuda_ms):
@@ -563,7 +581,7 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
     wcap = staged.shape[1]
     sel_t = torch.from_numpy(sel).to(dev)
     offs, lens = header.stream_offs[sel], lanes.coded_lens[sel]
-    table = api._to_device(np.stack([offs, lens]), dev)  # what the wrapper uploads
+    table = _to_device(np.stack([offs, lens]), dev)  # what the wrapper uploads
     staged_p, plain_ms = plain_run(lambda: gather_rows_plain(arch, *table, wcap, True), timed)
     err = _max_abs(staged, staged_p)
     _require_rows((staged != staged_p).any(1),
@@ -584,7 +602,7 @@ def compare_staging(data: bytes, device, block_size: int | None = None,
     ri = np.flatnonzero(lanes.raw)
     ri_t = torch.from_numpy(ri).to(dev)
     offs, lens = header.stream_offs[ri], lanes.block_lens[ri].astype(np.int64)
-    table = api._to_device(np.stack([offs, lens]), dev)
+    table = _to_device(np.stack([offs, lens]), dev)
     rows = gather_rows(arch, offs, lens, k)
     rows_p = gather_rows_plain(arch, *table, k, False)
     err_b = _max_abs(rows, rows_p)
@@ -653,7 +671,7 @@ def gather_edge_cases(buf: torch.Tensor, byte_widths, word_widths, seed: int = S
             offs = np.concatenate([16 * q + np.arange(64) % 16, [0, 5, n - cap, n - 1, n]])
             lens = np.concatenate([rng.integers(0, cap + 1, 64), [0, cap, cap, 1, 0]])
             got = gather_rows(view, offs, lens, width, words)
-            table = api._to_device(np.stack([offs, lens]), view.device)
+            table = _to_device(np.stack([offs, lens]), view.device)
             want = gather_rows_plain(view, *table, width, words)
             _require(torch.equal(got, want),
                      f"gather_rows ({'words' if words else 'bytes'}, width {width}, buffer "

@@ -57,7 +57,8 @@ import torch
 
 from . import api, launch_counts, native, oracle
 from ._build import BUILD_DIR
-from .cuda_checks import KernelInputs, compare_kernels
+from ._pipeline import _host_u8
+from .cuda_checks import KernelInputs, _byte_histogram, compare_kernels
 from .errors import ReduxError
 from .models.dense import DenseModel
 from .ops import coder
@@ -164,7 +165,7 @@ def _block(rng: np.random.Generator, k: int) -> bytes:
 def _prior(data: bytes, params: Parameters, budget: int):
     """``api.encode``'s prior for ``data``: its byte histogram (S4's plain
     version on the host) quantized with ``budget``."""
-    hist = api._byte_histogram(api._host_u8(data)).numpy()
+    hist = _byte_histogram(_host_u8(data)).numpy()
     return api._prior_extra(hist, params, budget)
 
 

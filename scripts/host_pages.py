@@ -3,7 +3,7 @@
     python3 scripts/host_pages.py [--mib 1024] [--piece-mib 256]
 
 ``api.decode`` copies each range of its output from a pinned slot into
-the returned ``bytes`` (``api._Output``), whose pages are new: each is
+the returned ``bytes`` (``_pipeline._Output``), whose pages are new: each is
 faulted in and zeroed on its first write.  This script times, for a
 result of ``--mib`` MiB filled ``--piece-mib`` MiB at a time from a
 pinned slot (a pageable one without CUDA):
@@ -14,7 +14,7 @@ pinned slot (a pageable one without CUDA):
 - ``populate``: ``madvise(MADV_POPULATE_WRITE)`` of the whole result by
   1, 2 and 4 threads over disjoint pieces, with and without
   ``MADV_HUGEPAGE`` (None where the kernel refuses it);
-- ``prefault``: ``api._Output.prefault`` of the whole result (threads
+- ``prefault``: ``_pipeline._Output.prefault`` of the whole result (threads
   writing a byte a page) at 1, 2, 4 and 8 threads, until ``ready``, and
   the copy into the prefaulted pages;
 - with CUDA, the D2H of one piece into the pinned slot.
@@ -41,7 +41,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import torch  # noqa: E402
 
-from redux_tpu_torch import api  # noqa: E402
+from redux_tpu_torch import _pipeline  # noqa: E402
+from redux_tpu_torch._record import UNRECORDED  # noqa: E402
 
 MADV_HUGEPAGE = 14
 MADV_POPULATE_WRITE = 23
@@ -64,7 +65,7 @@ def _thp() -> dict:
     return out
 
 
-def _fill(out: api._Output, src: torch.Tensor, piece: int) -> float:
+def _fill(out: _pipeline._Output, src: torch.Tensor, piece: int) -> float:
     """Seconds to copy ``src`` into ``out`` one piece at a time."""
     t0 = time.perf_counter()
     for a in range(0, out.n, piece):
@@ -73,7 +74,7 @@ def _fill(out: api._Output, src: torch.Tensor, piece: int) -> float:
     return time.perf_counter() - t0
 
 
-def _populate(out: api._Output, threads: int, huge: bool) -> tuple[float, bool]:
+def _populate(out: _pipeline._Output, threads: int, huge: bool) -> tuple[float, bool]:
     addr = out.view.data_ptr()
     if huge:
         _madvise((addr + HUGE - 1) & ~(HUGE - 1), (addr + out.n) & ~(HUGE - 1), MADV_HUGEPAGE)
@@ -114,29 +115,29 @@ def main() -> int:
     full = torch.get_num_threads()
     for threads in sorted({1, 2, 4, full}):
         torch.set_num_threads(threads)
-        with api._Output(n) as out:
+        with _pipeline._Output(n, UNRECORDED) as out:
             gbs[f"copy new t{threads}"] = n / _fill(out, src, piece) / 1e9
             gbs[f"copy touched t{threads}"] = n / _fill(out, src, piece) / 1e9
-        with api._Output(n) as out:
+        with _pipeline._Output(n, UNRECORDED) as out:
             addr = out.view.data_ptr()
             _madvise((addr + HUGE - 1) & ~(HUGE - 1), (addr + n) & ~(HUGE - 1), MADV_HUGEPAGE)
             gbs[f"copy new huge t{threads}"] = n / _fill(out, src, piece) / 1e9
     torch.set_num_threads(full)
     for threads in (1, 2, 4):
         for huge in (False, True):
-            with api._Output(n) as out:
+            with _pipeline._Output(n, UNRECORDED) as out:
                 s, ok = _populate(out, threads, huge)
                 gbs[f"populate{' huge' if huge else ''} x{threads}"] = n / s / 1e9 if ok else None
                 if huge and threads == 4:
                     gbs["copy populated huge"] = n / _fill(out, src, piece) / 1e9
     for threads in (1, 2, 4, 8):
-        with api._Output(n) as out:
+        with _pipeline._Output(n, UNRECORDED) as out:
             out.TOUCH_THREADS = threads
             t0 = time.perf_counter()
             out.prefault(0, n)
             out.ready(0, n)
             gbs[f"prefault x{threads}"] = n / (time.perf_counter() - t0) / 1e9
-            if threads == api._Output.TOUCH_THREADS:
+            if threads == _pipeline._Output.TOUCH_THREADS:
                 gbs["copy prefaulted"] = n / _fill(out, src, piece) / 1e9
     if cuda:
         dev_buf = torch.empty(piece, dtype=torch.uint8, device="cuda")

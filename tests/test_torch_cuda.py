@@ -452,7 +452,7 @@ def test_api_on_the_card_equals_the_cpu_over_lane_chunks(cuda_device, monkeypatc
     """300 blocks of 1024 with raw blocks and a short last block, the
     chunks cut to 128 blocks: the card's archive is the CPU path's, decode
     gives the input back, no plain version runs, and each kernel launches
-    as often as the chunks say (encode: K1, K2, S2 and S3 once a chunk;
+    as often as the chunks say (encode: K1, K2, S2, S3 and S4 once a chunk;
     decode, a range of blocks a chunk: K3 and S1 (words) once a range with
     coded blocks, S1 (bytes) once a range with raw blocks, S3 once a
     range)."""
@@ -490,7 +490,7 @@ def test_api_on_the_card_equals_the_cpu_over_lane_chunks(cuda_device, monkeypatc
     assert coded == 3 and with_raw >= 2
     assert counts == {"model_values": 3, "encode": 3, "decode": coded, "encode_fused": 0,
                       "encode_m": 0, "gather_rows": coded + with_raw, "splice_payload": 3,
-                      "crc32": 3 + 3}, counts
+                      "crc32": 3 + 3, "histogram": 3}, counts
 
 
 @pytest.mark.cuda
@@ -550,7 +550,7 @@ def test_encode_device_memory_is_flat_over_chunks(cuda_device, monkeypatch):
     allocated before it) stays under the reckoning from one chunk's shapes
     (``cuda_checks.encode_memory_bound``: two input slots, K1's planes,
     K2's words and a payload), and the 32-chunk peak is within 5% of the
-    8-chunk peak.  K1, K2, S2 and S3 launch once a chunk, no plain version
+    8-chunk peak.  K1, K2, S2, S3 and S4 launch once a chunk, no plain version
     runs, and the archive is the CPU path's."""
     import redux_tpu_torch
     from redux_tpu_torch import api, cuda_checks, testdata
@@ -582,7 +582,7 @@ def test_encode_device_memory_is_flat_over_chunks(cuda_device, monkeypatch):
         assert api.decode(arch, device=cuda_device) == data
         assert counts == dict.fromkeys(counts, 0) | {
             "model_values": n_chunks, "encode": n_chunks, "splice_payload": n_chunks,
-            "crc32": n_chunks}, counts
+            "crc32": n_chunks, "histogram": n_chunks}, counts
         bound = cuda_checks.encode_memory_bound(len(data), k, api.Parameters.tpu_wide())
         assert 0 < peak <= bound, (n_chunks, peak, bound)
         peaks.append(peak)
@@ -593,7 +593,7 @@ def test_encode_device_memory_is_flat_over_chunks(cuda_device, monkeypatch):
 def test_a_failing_pin_raises(cuda_device, monkeypatch):
     """Where host memory cannot be pinned, ``encode`` and ``decode`` on the
     card raise; neither copies pageable memory instead."""
-    from redux_tpu_torch import api, testdata
+    from redux_tpu_torch import _pipeline, api, testdata
 
     data = testdata.mixed(3 << 20, 41)
     arch = api.encode(data, device=cuda_device)
@@ -601,7 +601,7 @@ def test_a_failing_pin_raises(cuda_device, monkeypatch):
     def fail(n):
         raise RuntimeError("cannot pin")
 
-    monkeypatch.setattr(api, "_pinned", fail)
+    monkeypatch.setattr(_pipeline, "_pinned", fail)
     with pytest.raises(RuntimeError, match="cannot pin"):
         api.encode(data, device=cuda_device)
     with pytest.raises(RuntimeError, match="cannot pin"):
@@ -868,11 +868,11 @@ def test_results_are_prefaulted_on_the_card(cuda_device, monkeypatch):
     chunk's payload and decode each range's output, on the worker threads
     (a byte a page: no kernel hint needed, so every machine allows it):
     the ranges tile each result exactly, and the results are right."""
-    from redux_tpu_torch import api, testdata
+    from redux_tpu_torch import _pipeline, api, testdata
 
     touched = []
-    real = api._touch_pages
-    monkeypatch.setattr(api, "_touch_pages", lambda arr, a, b: touched.append((a, b))
+    real = _pipeline._touch_pages
+    monkeypatch.setattr(_pipeline, "_touch_pages", lambda arr, a, b: touched.append((a, b))
                         or real(arr, a, b))
     monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * 4096)
     monkeypatch.setattr(api, "DEC_CHUNK_BYTES", 128 * 4096)

@@ -18,7 +18,8 @@ import torch
 from redux_tpu import api as ref_api
 from redux_tpu import errors as ref_errors
 
-from redux_tpu_torch import api, container, testdata
+from redux_tpu_torch import _pipeline, api, container, testdata
+from redux_tpu_torch._record import UNRECORDED
 from redux_tpu_torch.errors import InvalidInputError
 from redux_tpu_torch.ops.staging import combine_crcs
 
@@ -180,7 +181,7 @@ def test_new_bytes_is_fresh_and_writable():
     """The result's memory: a new ``bytes`` per call (one byte too, which
     CPython otherwise shares), written through its tensor."""
     for n in (1, 2, 4097):
-        with api._Output(n) as oa, api._Output(n) as ob:
+        with _pipeline._Output(n, UNRECORDED) as oa, _pipeline._Output(n, UNRECORDED) as ob:
             assert oa.view.shape == ob.view.shape == (n,)
             oa.view.fill_(7)
             ob.view.fill_(9)
@@ -188,4 +189,4 @@ def test_new_bytes_is_fresh_and_writable():
         assert a is not b and len(a) == n
         assert a == b"\x07" * n and b == b"\x09" * n
     with pytest.raises(ValueError):
-        api._Output(0)
+        _pipeline._Output(0, UNRECORDED)

@@ -8,6 +8,8 @@ without CUDA, and how a step is issued.  The inputs are
 ``tests/test_torch_dp_route.py``'s, on one torch thread as there.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,8 @@ import torch
 from redux_tpu import api as ref_api
 from redux_tpu import errors as ref_errors
 
-from redux_tpu_torch import api, container
+from redux_tpu_torch import _pipeline, api, container
+from redux_tpu_torch._record import _Unrecorded
 from redux_tpu_torch.errors import InvalidInputError
 
 from test_torch_dp_route import (CHUNK, K, LISTS, _flat, _input, _reference,  # noqa: F401
@@ -66,8 +69,8 @@ def _record(monkeypatch):
     were made: the uploads' ``(ranges, bytes taken)`` and the fetches'
     ``(offset, length)`` of each put."""
     ups, fetches = [], []
-    real_up, real_take = api._Upload.__init__, api._Upload.take
-    real_fetch, real_put = api._Fetch.__init__, api._Fetch.put
+    real_up, real_take = _pipeline._Upload.__init__, _pipeline._Upload.take
+    real_fetch, real_put = _pipeline._Fetch.__init__, _pipeline._Fetch.put
 
     def up_init(self, data, ranges, device, *rest):
         real_up(self, data, ranges, device, *rest)
@@ -88,10 +91,10 @@ def _record(monkeypatch):
         self.puts.append((off, int(flat.shape[0])))
         return real_put(self, i, flat, off)
 
-    monkeypatch.setattr(api._Upload, "__init__", up_init)
-    monkeypatch.setattr(api._Upload, "take", take)
-    monkeypatch.setattr(api._Fetch, "__init__", fetch_init)
-    monkeypatch.setattr(api._Fetch, "put", put)
+    monkeypatch.setattr(_pipeline._Upload, "__init__", up_init)
+    monkeypatch.setattr(_pipeline._Upload, "take", take)
+    monkeypatch.setattr(_pipeline._Fetch, "__init__", fetch_init)
+    monkeypatch.setattr(_pipeline._Fetch, "put", put)
     return ups, fetches
 
 
@@ -207,13 +210,19 @@ def test_a_cuda_device_in_a_list_raises_without_cuda():
 
 def test_how_a_step_is_issued():
     """The first function runs on every share of the step, then the
-    second: every device's kernels queue before any host copy."""
-    step = [api._Share(j, 0, 10 * j, 10 * j + 10) for j in range(3)]
+    second: every device's kernels queue before any host copy.  Each run
+    serves its share's card first."""
     seen = []
 
-    def note(what):
-        return lambda sh: seen.append((what, sh.card))
+    class Serves(_Unrecorded):
+        def serve(self, j):
+            seen.append(("serve", j))
 
-    api._each(step, note("queue"), note("copy"))
-    assert seen == [("queue", 0), ("queue", 1), ("queue", 2), ("copy", 0), ("copy", 1),
-                    ("copy", 2)]
+    step = [(SimpleNamespace(j=j), api._Share(j, 0, 10 * j, 10 * j + 10)) for j in range(3)]
+
+    def note(what):
+        return lambda card, sh: seen.append((what, sh.card))
+
+    api._each(step, note("queue"), note("copy"), rec=Serves())
+    assert seen == [x for what in ("queue", "copy") for j in range(3)
+                    for x in (("serve", j), (what, j))]

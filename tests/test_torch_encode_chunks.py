@@ -14,11 +14,13 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from redux_tpu import api as ref_api
 from redux_tpu import container as ref_container
 
-from redux_tpu_torch import api, container, testdata
+from redux_tpu_torch import _pipeline, api, container, testdata
+from redux_tpu_torch._record import UNRECORDED
 from redux_tpu_torch.errors import InvalidInputError
 from redux_tpu_torch.params import Parameters
 
@@ -134,7 +136,7 @@ def test_write_header_refuses_what_build_archive_refuses():
 def _record(monkeypatch):
     """Each upload's bytes and each fetch's ``(offset, length)``."""
     takes, puts = [], []
-    real_take, real_put = api._Upload.take, api._Fetch.put
+    real_take, real_put = _pipeline._Upload.take, _pipeline._Fetch.put
 
     def take(self):
         t = real_take(self)
@@ -145,8 +147,8 @@ def _record(monkeypatch):
         puts.append((off, int(flat.shape[0])))
         return real_put(self, i, flat, off)
 
-    monkeypatch.setattr(api._Upload, "take", take)
-    monkeypatch.setattr(api._Fetch, "put", put)
+    monkeypatch.setattr(_pipeline._Upload, "take", take)
+    monkeypatch.setattr(_pipeline._Fetch, "put", put)
     return takes, puts
 
 
@@ -174,11 +176,11 @@ def test_the_cpu_path_pins_nothing(chunked, monkeypatch):
     def refuse(n):
         raise AssertionError("pinned memory on the CPU path")
 
-    monkeypatch.setattr(api, "_pinned", refuse)
+    monkeypatch.setattr(_pipeline, "_pinned", refuse)
     data = _data(300, 17, True, 9)
     arch = api.encode(data, block_size=K, device="cpu")
     assert api.decode(arch, device="cpu") == data
-    up = api._Upload(data, [(0, 10, 16)], api.torch.device("cpu"))
+    up = _pipeline._Upload(data, [(0, 10, 16)], torch.device("cpu"), UNRECORDED)
     assert up.side is None and up.take().tolist() == list(data[:10]) + [0] * 6
 
 
@@ -187,9 +189,9 @@ def test_output_shrinks_in_place():
     lies (a block of this size: no copy), and refuses a length outside
     1..n; a call that raises before the result frees it."""
     n = 64 << 20
-    with api._Output(n) as out:
+    with _pipeline._Output(n, UNRECORDED) as out:
         addr = out._ptr.value
-        out.view[:1000].copy_(api.torch.arange(1000) % 251)
+        out.view[:1000].copy_(torch.arange(1000) % 251)
         with pytest.raises(ValueError):
             out.result(n + 1)
         with pytest.raises(ValueError):
@@ -198,7 +200,7 @@ def test_output_shrinks_in_place():
     assert id(got) == addr and len(got) == 1000
     assert got == bytes(i % 251 for i in range(1000))
     with pytest.raises(RuntimeError):
-        with api._Output(4096) as out:
+        with _pipeline._Output(4096, UNRECORDED) as out:
             raise RuntimeError("the call failed")
     assert out._ptr is None and out.view is None
 
@@ -218,11 +220,11 @@ def test_touch_pages_writes_a_byte_a_page():
     arr = np.full(5 * page + 100, 0xFF, dtype=np.uint8)
     lead = (-arr.ctypes.data) % page  # the first page start in arr
     a, b = lead + 10, lead + 3 * page + 1
-    api._touch_pages(arr, a, b)
+    _pipeline._touch_pages(arr, a, b)
     want = np.full_like(arr, 0xFF)
     want[[a, lead + page, lead + 2 * page, lead + 3 * page]] = 0
     assert np.array_equal(arr, want)
-    api._touch_pages(arr, b, b)  # an empty range touches nothing
+    _pipeline._touch_pages(arr, b, b)  # an empty range touches nothing
     assert np.array_equal(arr, want)
 
 
@@ -231,10 +233,10 @@ def test_prefaulted_output_is_correct_and_outlives_the_call(monkeypatch):
     64 KiB here): every range is touched before it is written, the result
     is what was written, held by its caller alone, and survives ``gc``; the
     threads are joined when it is handed over."""
-    monkeypatch.setattr(api._Output, "TOUCH_PIECE", 1 << 16)
+    monkeypatch.setattr(_pipeline._Output, "TOUCH_PIECE", 1 << 16)
     n = (1 << 20) + 123
-    src = api.torch.from_numpy(np.random.default_rng(2).integers(0, 256, n, dtype=np.uint8))
-    with api._Output(n) as out:
+    src = torch.from_numpy(np.random.default_rng(2).integers(0, 256, n, dtype=np.uint8))
+    with _pipeline._Output(n, UNRECORDED) as out:
         for a in range(0, n, 300_000):
             out.prefault(a, min(a + 300_000, n))
         assert len(out._touches) == sum(-(-min(300_000, n - a) // (1 << 16))
@@ -255,7 +257,7 @@ def test_a_failing_call_joins_its_prefault_and_frees_the_output():
     """A call that raises with prefaults queued: the exit cancels what has
     not started, waits for what has, and only then frees the object."""
     with pytest.raises(RuntimeError):
-        with api._Output(64 << 20) as out:
+        with _pipeline._Output(64 << 20, UNRECORDED) as out:
             out.prefault(0, 64 << 20)
             raise RuntimeError("the call failed")
     assert out._ptr is None and out.view is None and out._pool is None
@@ -269,13 +271,13 @@ def test_prefault_touches_only_what_is_written(chunked, monkeypatch, n_blocks, t
     its end (the result's tail that ``_PyBytes_Resize`` gives back).
     Decode prefaults each range of blocks' output: they tile the input."""
     touched = []
-    real = api._touch_pages
+    real = _pipeline._touch_pages
 
     def record(arr, a, b):
         touched.append((a, b))
         real(arr, a, b)
 
-    monkeypatch.setattr(api, "_touch_pages", record)
+    monkeypatch.setattr(_pipeline, "_touch_pages", record)
     monkeypatch.setattr(api, "DEC_CHUNK_BYTES", CHUNK * K)
     data = _data(n_blocks, tail, False, 8)
     arch = api.encode(data, block_size=K, device="cpu")

@@ -6,7 +6,7 @@ sum of its parts; the bytes the call moves to and from its devices are
 counted where they move and equal their closed form; a mark waits for no
 device, and each span's end lies just before the ``mark:`` range a
 noting ``_timings`` opens for it in ``torch.profiler``'s trace.  A call
-without ``_timings`` builds no recorder and records nothing.  The chunks
+without ``_timings`` builds no ``_Recorder`` and records nothing.  The chunks
 are cut to 128 blocks of 256 bytes (``ENC_CHUNK_BYTES`` /
 ``DEC_CHUNK_BYTES`` patched), so a few hundred blocks take several
 shares, on one device, on ``["cpu", "cpu"]`` and on ``["cpu"] * 4`` (two
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from redux_tpu_torch import api, container, testdata
+from redux_tpu_torch import _record, api, container, testdata
 
 K = 256
 CHUNK = 128
@@ -241,7 +241,8 @@ def test_each_entry_counts_its_own_shares(calls, case):
         assert plan == [2 * CHUNK + 2] * 3 + [2 * CHUNK + 1]
 
 
-def test_an_unrecorded_call_records_nothing(chunked, monkeypatch):
+@pytest.mark.parametrize("devs", ["cpu", ["cpu", "cpu"]])
+def test_an_unrecorded_call_records_nothing(chunked, monkeypatch, devs):
     data = _input(200, 256)
     before = api.recorded_calls()
     last = before[-1]["id"] if before else None
@@ -249,12 +250,12 @@ def test_an_unrecorded_call_records_nothing(chunked, monkeypatch):
     def no_recorder(*a, **kw):
         raise AssertionError("a call without _timings built a recorder")
 
-    monkeypatch.setattr(api, "_Recorder", no_recorder)
-    arch = api.encode(data, block_size=K, device="cpu")
-    assert api.decode(arch, device="cpu") == data
+    monkeypatch.setattr(_record, "_Recorder", no_recorder)
+    arch = api.encode(data, block_size=K, device=devs)
+    assert api.decode(arch, device=devs) == data
     after = api.recorded_calls()
     assert (after[-1]["id"] if after else None) == last
-    assert api._records.maxlen == api.RECORDED_CALLS >= 4096
+    assert _record._records.maxlen == _record.RECORDED_CALLS >= 4096
 
 
 @pytest.mark.parametrize("cards", [["cuda:1"], ["cuda:0", "cuda:1"], ["cpu"]])
@@ -266,7 +267,7 @@ def test_route_blocks_are_counted_on_the_calls_cards(monkeypatch, cards):
 
     monkeypatch.setattr(_build, "route_blocks", type(_build.route_blocks)())
     _build.count_blocks("warp", torch.device("cuda", 1), 3)  # before the call
-    rec = api._Recorder({}, "dec", 10, [torch.device(c) for c in cards])
+    rec = _record._Recorder({}, "dec", 10, [torch.device(c) for c in cards])
     for route, card, n in (("warp", 1, 7), ("thread", 0, 5), ("warp", 0, 2), ("warp", 2, 11)):
         _build.count_blocks(route, torch.device("cuda", card), n)
     rec.done(10)
@@ -284,8 +285,8 @@ def test_a_mark_waits_for_no_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", refuse)
     monkeypatch.setattr(torch.cuda.Event, "synchronize", refuse)
     timings = {}
-    rec = api._Recorder(timings, "enc", 5, [torch.device("cuda", 0), torch.device("cuda", 1)])
-    rec.phase = "pass1"
+    rec = _record._Recorder(timings, "enc", 5, [torch.device("cuda", 0), torch.device("cuda", 1)])
+    rec.phase("pass1")
     rec.mark("launch")
     rec.mark("sums wait")
     assert [s[:2] for s in rec.spans] == [("pass1", "launch"), ("pass1", "sums wait")]

@@ -14,6 +14,7 @@ import pytest
 from redux_tpu import api as ref_api
 
 from redux_tpu_torch import api, container, cuda_checks, testdata
+from redux_tpu_torch._pipeline import _host_u8
 from redux_tpu_torch.models.dense import quantize_prior
 from redux_tpu_torch.params import Parameters
 
@@ -94,7 +95,7 @@ def test_prior_in_segments_equals_the_one_shot_histogram(n, monkeypatch):
     budget = min(api.DEFAULT_PRIOR_BUDGET, params.freq_max // 2)
     one_shot = np.bincount(np.frombuffer(data, np.uint8), minlength=256)
     want = quantize_prior(one_shot, params, budget)[:256]
-    assert np.array_equal(api._byte_histogram(api._host_u8(data)).numpy(), one_shot)
+    assert np.array_equal(cuda_checks._byte_histogram(_host_u8(data)).numpy(), one_shot)
     monkeypatch.setattr(api, "ENC_CHUNK_BYTES", 128 * 256)
     header, _ = container.parse_archive(api.encode(data, block_size=256, device="cpu"))
     assert np.array_equal(header.prior_extra, want)

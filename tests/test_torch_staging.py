@@ -18,7 +18,7 @@ import torch
 from redux_tpu import api as ref_api
 from redux_tpu.params import Parameters as RefParameters
 
-from redux_tpu_torch import api, container, testdata
+from redux_tpu_torch import api, container, cuda_checks, testdata
 from redux_tpu_torch.errors import InvalidInputError
 from redux_tpu_torch.ops import staging
 from redux_tpu_torch.ops.coder import words_to_bytes
@@ -513,7 +513,7 @@ def test_byte_histogram_adds_into_a_row_that_holds_counts():
     for a, b in ((0, 1), (1, 4096), (4096, 4096), (4096, 70_001)):
         staging.byte_histogram(t[a:b], out)
     assert np.array_equal(out.numpy(), np.arange(256) * 1000 + _bincount(data))
-    assert np.array_equal(api._byte_histogram(t).numpy(), _bincount(data))
+    assert np.array_equal(cuda_checks._byte_histogram(t).numpy(), _bincount(data))
 
 
 @pytest.mark.parametrize("out", [
@@ -655,7 +655,7 @@ def test_splice_payload_equals_the_references_payload():
     header, _ = container.parse_archive(ref, with_streams=False)
     p = Parameters.tpu_wide()
     lens = torch.from_numpy(api._block_lens(len(data), k))
-    blocks = api._blocks(data, 0, 40, k, torch.device("cpu"))
+    blocks = cuda_checks._blocks(data, 0, 40, k, torch.device("cpu"))
     ic = torch.from_numpy(api._init_cum(p, header.prior_extra))
     n_words = api._encode_words(p, k, 16)
     words, bl, ovf = encode_blocks_ranked(blocks, lens, ic, p, n_words, 16)
