@@ -19,9 +19,10 @@ memory under one card's reckoning), plus the sharded K5 entry at the
 main path's shapes.  Each route's archive must equal the default route's,
 each round trip must be byte-equal, and each route must have launched
 its kernels (counts reset just before it, read just after).  Phase 8 drives the other routes: the
-CLI at its defaults ((8,30,32), K1 -> K2 and K3 in their u64
-instantiations) over the same 64 MiB through files, those kernels against
-their plain versions at the main shape, ``api.encode_auto`` ->
+CLI at its defaults ((8,30,32), K1 -> K2 in its u64 instantiation and K3,
+whose quotients are reciprocal at every parameter set) over the same 64
+MiB through files, those kernels against their plain versions at the
+main shape, ``api.encode_auto`` ->
 ``decode_auto`` at 64 MiB and at 256 KiB (the compact range), and the
 native serial codec through ``--format redux``.  Phase 9 runs the device
 bench (``redux_tpu_torch.bench``) on the same 64 MiB, the generic-model
@@ -683,7 +684,7 @@ def phase11(dev):
     ``BENCH_BYTES[1]`` of the big input, verified, with its peak device
     memory; (c) the CLI at its defaults ((8,30,32)) through files on the
     text input, ``cmp``-equal, launching each of K1-K3 once a chunk, its
-    last chunk held to the plain versions in their u64 instantiations;
+    last chunk held to the plain versions (K2 in its u64 instantiation);
     (d) the container corruption sweep (``cuda_checks.corruption_sweep``)
     through K3 on a ``SWEEP_BYTES`` archive of ``text_like``, and the
     over-long stream of ``tests/test_torch_fuzz_container.py``."""

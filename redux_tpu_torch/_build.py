@@ -42,8 +42,8 @@ SIGNATURES = {
     # tfreeze, delta, code_bits, fits53, device, stream
     "rxt_encode_blocks": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # words, lens, init_cum, out, B, W, k, delta, freq_max, code_bits,
-    # fits53, warp, device, stream
-    "rxt_decode_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # warp, device, stream
+    "rxt_decode_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # syms, lens, init_cum, words, byte_lens, ovf, B, K, n_words, delta,
     # freq_max, code_bits, device, stream (K4 and K5 take the same)
     "rxt_encode_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -89,8 +89,12 @@ __device__ __forceinline__ int freeze_point(int init_total, int freq_max, int de
   return freq_max > init_total ? (freq_max - init_total + delta - 1) / delta : 0;
 }
 
-// floor(a / b) for a < 2^53 from rb = 1/b rounded: the truncated product is
-// within one of the quotient, and one integer test corrects it.
+// floor(a / b) for a < 2^63 and a quotient below 2^40, from rb = 1/b
+// rounded: a, rb and their product each round by at most 2^-53 relative,
+// so the truncated product is within one of the quotient (3 x 2^-53 x 2^40
+// < 1), and one integer test corrects it; q * b stays at most a + b.  The
+// coders' quotients are at most range <= 2^32 (narrowing) or below 4 x
+// count < 2^33 (K3's value quotient), whatever the size of the dividend.
 __device__ __forceinline__ uint64_t div53(uint64_t a, uint64_t b, double rb) {
   uint64_t q = __double2ull_rz(__ull2double_rn(a) * rb);
   const uint64_t qb = q * b;
@@ -102,10 +106,11 @@ __device__ __forceinline__ uint64_t div53(uint64_t a, uint64_t b, double rb) {
   return q;
 }
 
-// The coder's quotient: div53 where every dividend stays below 2^53
-// (kFits53, chosen by the wrappers from code_bits + bit_length(freq_max +
-// 254) <= 53), a native u64 division otherwise (e.g. the reference CLI's
-// (8,30,32), products up to 2^62).
+// The encoders' quotient (K2, K4, K5): div53 where every dividend stays
+// below 2^53 (kFits53, chosen by the wrappers from code_bits +
+// bit_length(freq_max + 254) <= 53), a native u64 division otherwise (e.g.
+// the reference CLI's (8,30,32), products up to 2^62).  K3 takes div53 at
+// every parameter set.
 template <bool kFits53>
 __device__ __forceinline__ uint64_t quotient(uint64_t a, uint64_t b, double rb) {
   return kFits53 ? div53(a, b, rb) : a / b;

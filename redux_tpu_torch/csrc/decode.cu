@@ -29,10 +29,15 @@
 // - count does not depend on the symbols (it grows by delta a position
 //   until freq_max), so its reciprocal for the next symbol is taken off
 //   the chain, and one reciprocal serves both bounds;
-// - every quotient is rxt::quotient (common.cuh): where every dividend
-//   stays below 2^53 (kFits53) a double reciprocal times the dividend,
-//   truncated, then corrected by one, otherwise (the CLI's (8,30,32))
-//   native u64 divisions;
+// - every quotient is rxt::div53 (common.cuh), at every parameter set the
+//   wrapper admits: a double reciprocal times the dividend, truncated,
+//   then corrected by one.  The dividends reach 2^63 at (8,30,32), but
+//   the quotients stay small: the value quotient is below 4 x count <
+//   2^33 (z < 2^code_bits, a renormalised range above a quarter; a larger
+//   one, on a corrupt stream only, is off by far less than itself and the
+//   clamp to count - 1 takes it alike), the narrowing ones at most range
+//   <= 2^32, and three roundings of 2^-53 leave the truncated product
+//   within one of such a quotient;
 // - the bit reader keeps the block's next word in flight one word ahead;
 //   symbols collect in a 16-byte register window and are stored 16 at a
 //   time (k a multiple of 16; byte stores otherwise).
@@ -58,7 +63,7 @@
 //   taken by a tree of selects;
 // - every lane narrows over its own pick while the ballot runs (narrow():
 //   the quotient from the double reciprocal of count, one fused
-//   multiply-add and one integer test, exact in both instantiations), and
+//   multiply-add and one integer test, exact at every parameter set), and
 //   three shuffles from the owning lane bring i, dlo and dhi - 1 to the
 //   warp;
 // - low, high, z and the bit reader are the same in every lane (broadcast
@@ -68,9 +73,9 @@
 // - lane j keeps the symbol at position t0 + j of each 32, and the warp
 //   stores the 32 bytes at once.
 // At 1-512 blocks a launch takes about 1.07 ms at k = 4096 against the
-// thread route's 2.5 (tpu_wide) and 4.3 ((8,30,32)); it issues about 230
-// warp instructions a symbol, so each warp a scheduler past the first adds
-// about 0.6 ms, and past three the thread route is the cheaper at tpu_wide
+// thread route's 2.5 (at every parameter set); it issues about 230 warp
+// instructions a symbol, so each warp a scheduler past the first adds
+// about 0.6 ms, and past three the thread route is the cheaper
 // (ops/decode.py).
 #include "common.cuh"
 
@@ -107,7 +112,6 @@ struct BitReader {
   }
 };
 
-template <bool kFits53>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lens,
               const int32_t* __restrict__ init_cum, uint8_t* __restrict__ out, int B, int W,
@@ -120,7 +124,7 @@ decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ le
   fw.init(init_cum);
   const uint32_t base = init_cum[0];
   uint64_t count = static_cast<uint32_t>(init_cum[kNodes]);
-  double rc = kFits53 ? __drcp_rn(static_cast<double>(count)) : 0.0;
+  double rc = __drcp_rn(static_cast<double>(count));
   const uint64_t cmax = (1ull << cb) - 1;
   BitReader rd(words + static_cast<size_t>(blk) * W, W);
   uint64_t low = 0, high = cmax;
@@ -135,8 +139,7 @@ decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ le
       if (t0 + j < len) {
         const uint64_t range = high - low + 1;
         const uint64_t a = (z + 1) * count - 1;
-        uint64_t value = rxt::quotient<kFits53>(
-            a, range, kFits53 ? __drcp_rn(static_cast<double>(range)) : 0.0);
+        uint64_t value = rxt::div53(a, range, __drcp_rn(static_cast<double>(range)));
         value = value < count - 1 ? value : count - 1;
         // Descent: the largest pos with prefix(pos) <= value - base, three
         // levels a round (steps 4s, 2s, s): the 7 nodes below pos load
@@ -191,8 +194,8 @@ decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ le
         const uint64_t flo = static_cast<uint32_t>(value) - rem;
         const uint64_t fhi = flo + f;
         // Narrow with the pre-update count.
-        const uint64_t dlo = rxt::quotient<kFits53>(range * flo, count, rc);
-        const uint64_t dhi = rxt::quotient<kFits53>(range * fhi, count, rc);
+        const uint64_t dlo = rxt::div53(range * flo, count, rc);
+        const uint64_t dhi = rxt::div53(range * fhi, count, rc);
         high = low + dhi - 1;
         low += dlo;
         z -= dlo;
@@ -206,7 +209,7 @@ decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ le
             if (up_i[q] <= kNodes) fw.node(up_i[q]) = up_v[q] + delta;
           }
           count += delta;
-          if (kFits53) rc = __drcp_rn(static_cast<double>(count));  // for the next symbol
+          rc = __drcp_rn(static_cast<double>(count));  // for the next symbol
         }
       }
       w0 = __funnelshift_r(w0, w1, 8);
@@ -380,7 +383,7 @@ decode_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ le
 
 RXT_API int rxt_decode_blocks(const void* words, const void* lens, const void* init_cum,
                               void* out, int B, int W, int k, int delta, int freq_max,
-                              int code_bits, int fits53, int warp, int device, void* stream) {
+                              int code_bits, int warp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const auto w = static_cast<const uint32_t*>(words);
@@ -392,8 +395,7 @@ RXT_API int rxt_decode_blocks(const void* words, const void* lens, const void* i
     decode_kernel<<<B, 32, 0, s>>>(w, l, ic, o, W, k, delta, freq_max, code_bits);
   } else {
     const int grid = (B + kThreads - 1) / kThreads;
-    auto kernel = fits53 ? decode_kernel<true> : decode_kernel<false>;
-    kernel<<<grid, kThreads, 0, s>>>(w, l, ic, o, B, W, k, delta, freq_max, code_bits);
+    decode_kernel<<<grid, kThreads, 0, s>>>(w, l, ic, o, B, W, k, delta, freq_max, code_bits);
   }
   return cudaGetLastError();
 }

@@ -753,8 +753,9 @@ def odd_inputs(data: bytes, n_blocks: int, k: int, device: torch.device) -> Kern
 def check_kernels(device: torch.device, n_blocks: int = 1024) -> dict:
     """Phase 3: the kernels against their plain versions (and K4, K5
     against K2) at tpu_wide, delta 16 with the prior; at tpu32 with the
-    freeze engaged; at the reference CLI's (8,30,32), where K2 and K3 take
-    their u64 instantiations and K4 and K5 must refuse the parameters; and
+    freeze engaged; at the reference CLI's (8,30,32), where K2 takes its
+    u64 instantiation, K3 its reciprocal quotients as everywhere, and K4
+    and K5 must refuse the parameters; and
     at shapes off the even ones: B not a multiple of 32 (K4's partial last
     group) with K not a multiple of 32 or 4 (K2's scalar loads), K a
     multiple of 4 but not of 8 (K2's last positions after its groups), and

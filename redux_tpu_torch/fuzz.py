@@ -75,10 +75,11 @@ CONFIGS = {
     "u32": ((8, 10, 12), (8, 12, 14), (8, 14, 16), (8, 12, 18)),
     # fits_wide32 only; (8,21,23) is its edge (code_bits 23, code + freq 44).
     "wide32": ((8, 16, 18), (8, 20, 22), (8, 18, 22), (8, 21, 23)),
-    # Neither, but products_fit_53: K2 and K3 on reciprocal quotients, K4
+    # Neither, but products_fit_53: K2 on reciprocal quotients, K4
     # and K5 refuse; (8,20,32) is the last config with code_bits 32.
     "fits53": ((8, 22, 24), (8, 20, 32)),
-    # u64 divisions in K2 and K3, from (8,21,32), the first past the edge.
+    # u64 divisions in K2, from (8,21,32), the first past the edge (K3 takes
+    # reciprocal quotients in every class).
     "u64": ((8, 21, 32), (8, 24, 32), (8, 26, 28), (8, 28, 30), (8, 30, 32)),
 }
 BLOCK_SIZES = (48, 96, 160, 224, 288, 352, 1000, 1022, 4096)
@@ -90,7 +91,7 @@ FAIL_DIR = BUILD_DIR.parent / "fuzz"
 
 
 def config_class(params: Parameters) -> str:
-    """Which instantiation the kernels take for ``params``: one of :data:`CLASSES`."""
+    """Which instantiation the encoders take for ``params``: one of :data:`CLASSES`."""
     if params.fits_u32:
         return "u32"
     if params.fits_wide32:

@@ -99,9 +99,10 @@ def expect_symbol_encoder(syms: torch.Tensor, lens: torch.Tensor, init_cum: torc
 def products_fit_53(params: Parameters) -> bool:
     """True when every dividend of the coder's quotients (K2-K5) stays below
     ``2**53``: ``range * fhi`` (and the decoder's ``(z + 1) * count``) are
-    below ``2**code_bits * (freq_max + MAX_DELTA)``, and a double
-    reciprocal then gives each quotient within one.  Picks the kernels'
-    instantiation: reciprocal quotients, or native u64 divisions."""
+    below ``2**code_bits * (freq_max + MAX_DELTA)``.  Picks K2's
+    instantiation: reciprocal quotients, or native u64 divisions.  K3
+    takes reciprocal quotients at every parameter set: what they need is
+    a small quotient, not a small dividend (``ops/decode.py``)."""
     return params.code_bits + (params.freq_max + MAX_DELTA - 1).bit_length() <= 53
 
 

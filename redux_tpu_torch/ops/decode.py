@@ -15,14 +15,15 @@ block-major ``(B, W)``.
 The kernel has two routes, chosen by the launch's block count ``B``
 (:func:`warp_route_max`).  The thread route (one thread a block, the
 model a Fenwick tree in shared memory: the cheapest model a block-symbol,
-for throughput over many blocks) has two instantiations, chosen by
-:func:`~redux_tpu_torch.ops.coder.products_fit_53`: quotients from a
-double reciprocal with a one-step integer correction where every
-dividend stays below ``2**53`` (tpu_wide, tpu32), native u64 divisions
-otherwise (the reference CLI's (8,30,32)).  The warp route (one warp a
-block, the row in registers, no division before the symbol search: the
-shortest chain a symbol, for launches of few blocks) takes reciprocal
-quotients in both, exact because its quotients are at most ``2**32``.
+for throughput over many blocks) takes every quotient from a double
+reciprocal with a one-step integer correction, at every parameter set
+that :func:`~redux_tpu_torch.ops.coder.check_code_bits` admits: the
+dividends reach ``2**63`` at the reference CLI's (8,30,32), but the
+quotients stay below ``4 * count < 2**33`` (the value) and at most
+``range <= 2**32`` (the narrowing), where the rounded product is within
+one.  The warp route (one warp a block, the row in registers, no division
+before the symbol search: the shortest chain a symbol, for launches of
+few blocks) takes reciprocal quotients too, for its narrowing alone.
 """
 
 from __future__ import annotations
@@ -33,8 +34,7 @@ import torch
 
 from .. import _build
 from ..params import Parameters
-from .coder import (M32, check_code_bits, expect, kernel_device, mask, products_fit_53,
-                    renorm_plain)
+from .coder import M32, check_code_bits, expect, kernel_device, mask, renorm_plain
 
 
 def decode_blocks_plain(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
@@ -94,7 +94,7 @@ def decode_blocks_plain(words: torch.Tensor, lens: torch.Tensor, init_cum: torch
 # The warp route's blocks an SM at most: three warps a scheduler.  Its
 # launch takes about 0.6 ms more for each warp a scheduler past the first
 # (1.07 ms up to 512 blocks, 2.17 at 1536, 2.82 at 1792, on 132 SMs),
-# against the thread route's 2.5-2.6 ms at tpu_wide (4.3-4.4 at (8,30,32)).
+# against the thread route's 2.5-2.6 ms (tpu_wide and (8,30,32) alike).
 WARP_BLOCKS_PER_SM = 12
 
 
@@ -141,8 +141,8 @@ def decode_blocks(words: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tenso
     lib = _build.lib()
     err = lib.rxt_decode_blocks(
         words.data_ptr(), lens.data_ptr(), init_cum.data_ptr(), out.data_ptr(), b, w, k,
-        delta, params.freq_max, params.code_bits, int(products_fit_53(params)),
-        int(route == "warp"), dev.index or 0, _build.stream_of(dev),
+        delta, params.freq_max, params.code_bits, int(route == "warp"), dev.index or 0,
+        _build.stream_of(dev),
     )
     _build.check(err, "rxt_decode_blocks")
     _build.count_launch("decode", dev)

@@ -36,9 +36,9 @@ times K3's two routes instead (``decode_blocks``' private ``_route``; a
 checkout without it times its one route as ``thread``): at each block
 count B of ``--blocks`` (:data:`ROUTE_BLOCKS` by default), the first B
 blocks of ``cuda_checks.phase3_data`` (4096 bytes, seed 7) coded by K1 ->
-K2 and staged sorted by coded length as ``api.decode`` stages them, in
-both instantiations
-(tpu_wide and the reference CLI's (8,30,32), delta 16, the prior).  The
+K2 and staged sorted by coded length as ``api.decode`` stages them, at
+two parameter sets (tpu_wide and the reference CLI's (8,30,32), delta 16,
+the prior).  The
 two routes' symbols must be equal.  Then per checkout the median ms of
 each route at each B, and the crossover: the least B at which the thread
 route is faster.

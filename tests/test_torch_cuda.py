@@ -72,10 +72,11 @@ def test_default_device_runs_the_kernels(cuda_device):
 @pytest.mark.parametrize("cfg,delta,k", [((8, 20, 22), 16, 4096), ((8, 30, 32), 7, 1024)])
 def test_decoder_sorted_and_unsorted_lanes(cuda_device, cfg, delta, k):
     """K3 on lanes in block order and sorted by coded length (the main
-    path's staging) against its plain version, in both instantiations:
-    reciprocal quotients at tpu_wide, u64 divisions at (8,30,32)."""
+    path's staging) against its plain version, at tpu_wide and at
+    (8,30,32), whose dividends pass 2**53 (K2's u64 instantiation there):
+    K3 takes reciprocal quotients at both."""
     from redux_tpu_torch import cuda_checks
-    from redux_tpu_torch.ops.decode import products_fit_53
+    from redux_tpu_torch.ops.coder import products_fit_53
     from redux_tpu_torch.params import Parameters
 
     params = Parameters(*cfg)
@@ -1073,7 +1074,7 @@ def test_recorded_calls_by_card(cuda_device, monkeypatch, tmp_path, which):
 @pytest.fixture(scope="module")
 def route_inputs():
     """16,384 blocks of ``cuda_checks.phase3_data`` (4096 bytes, seed 23)
-    coded by K1 -> K2 in both instantiations, with their plain decode:
+    coded by K1 -> K2 in both of K2's instantiations, with their plain decode:
     per configuration ``(params, words, klens, init_cum, plain)``, the
     words padded by two zero words and blocks stored raw given length 0."""
     if not torch.cuda.is_available():
@@ -1106,7 +1107,7 @@ def route_inputs():
 @pytest.mark.parametrize("at", ["1", "6", "188", "threshold", "threshold+1", "16384"])
 def test_decoder_routes_agree(cuda_device, route_inputs, cfg, at):
     """K3's warp and thread routes, each forced, decode the first B blocks
-    to the plain version's symbols, in both instantiations; the default
+    to the plain version's symbols, at tpu_wide and (8,30,32); the default
     takes the warp route up to ``warp_route_max`` blocks and the thread
     route past it; ``_build.route_blocks`` counts each launch's blocks
     under its route and card, and ``launch_counts`` one launch a call."""
@@ -1127,6 +1128,69 @@ def test_decoder_routes_agree(cuda_device, route_inputs, cfg, at):
         taken = route or ("warp" if b <= thr else "thread")
         after = _build.route_blocks - before
         assert dict(after) == {(taken, cuda_device.index): b}, route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [(8, 21, 32), (8, 30, 32)])
+def test_thread_route_past_the_53_bit_edge(cuda_device, cfg):
+    """K3 forced onto the thread route where ``products_fit_53`` is false,
+    its quotients from reciprocals as at tpu_wide: 2,048 blocks of 4096
+    each of ``text_like``, ``incompressible`` and one repeated byte, every
+    block given its full length (a stream cut at the row's capacity reads
+    zeros past it in both), decode to the plain version's symbols exactly,
+    and every block coded within its row to its input; so do the same
+    words with bits flipped (corrupt streams, whose value quotient can
+    pass ``count``).  Through ``api``, an archive of 2,048 blocks decodes
+    on the thread route, and each of its copies with a payload bit flipped
+    raises a ReduxError or gives back the input."""
+    from redux_tpu_torch import api, cuda_checks, testdata
+    from redux_tpu_torch.errors import ReduxError
+    from redux_tpu_torch.ops.coder import products_fit_53
+    from redux_tpu_torch.ops.decode import decode_blocks, decode_blocks_plain
+    from redux_tpu_torch.ops.encode import encode_blocks
+    from redux_tpu_torch.ops.model import model_lohi
+    from redux_tpu_torch.params import Parameters
+
+    params, k, delta, b = Parameters(*cfg), 4096, 16, 2048
+    assert not products_fit_53(params)
+    gen = torch.Generator(device=cuda_device).manual_seed(cfg[1])
+    bit = torch.tensor([1 << i for i in range(31)] + [-(1 << 31)], dtype=torch.int32,
+                       device=cuda_device)  # bit i of an int32 word
+    for kind, data in (("text_like", testdata.text_like(b * k, 41)),
+                       ("incompressible", testdata.incompressible(b * k, 42)),
+                       ("one byte", bytes([0x5A]) * (b * k))):
+        x = cuda_checks.KernelInputs(data, params, delta, k, cuda_device)
+        lo, hi = model_lohi(x.syms, x.lens, x.init_cum, params, delta)
+        words, _, ovf = encode_blocks(lo, hi, x.lens, x.init_total, params, x.n_words, delta)
+        del lo, hi
+        words = torch.nn.functional.pad(words, (0, 2)).contiguous()
+        args = (x.init_cum, params, k, delta)
+        got = decode_blocks(words, x.lens, *args, _route="thread")
+        assert torch.equal(got, decode_blocks_plain(words, x.lens, *args)), kind
+        assert torch.equal(got[~ovf], x.syms[~ovf]), kind
+        flips = bit[torch.randint(0, 32, words.shape, device=cuda_device, generator=gen)]
+        hit = torch.rand(words.shape, device=cuda_device, generator=gen) < 0.002
+        bad = words ^ torch.where(hit, flips, 0)
+        bad[:, 0] ^= 1 << 7  # z's first bits
+        got = decode_blocks(bad, x.lens, *args, _route="thread")
+        assert torch.equal(got, decode_blocks_plain(bad, x.lens, *args)), f"{kind}, corrupt"
+
+    data = testdata.text_like(b * k, 43)
+    arch = api.encode(data, params, block_size=k, device=cuda_device)
+    assert api.decode(arch, device=cuda_device, _timings={}) == data
+    assert api.recorded_calls()[-1]["thread_blocks"] > 0
+    raised = 0
+    rng = np.random.default_rng(cfg[1])
+    for pos in rng.integers(len(arch) // 8, len(arch), 8).tolist():
+        bad = bytearray(arch)
+        bad[pos] ^= 1 << int(rng.integers(0, 8))
+        try:
+            back = api.decode(bytes(bad), device=cuda_device)
+        except ReduxError:
+            raised += 1
+        else:
+            assert back == data, pos
+    assert raised > 0
 
 
 @pytest.mark.cuda

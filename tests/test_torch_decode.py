@@ -3,7 +3,8 @@ decoder in interpret mode (``decode_blocks_pallas``) on the sequential
 oracle's v2 streams.  Exact equality of the decoded symbols.  Also the
 CUDA kernel's algebra, emulated in numpy: the Fenwick descent and
 ``freq(sym)`` against the row search, the reciprocal quotients against
-integer division, and the choice of the kernel's instantiation."""
+integer division at every parameter class, one emulated thread on valid
+and on corrupt streams, and the wrapper's kernel arguments."""
 
 import numpy as np
 import pytest
@@ -16,8 +17,8 @@ from redux_tpu.models.dense import prior_init_cum, uniform_init_cum
 from redux_tpu.ops.pallas_decode import decode_blocks_pallas
 from redux_tpu.params import Parameters as RefParameters
 
-from redux_tpu_torch.ops.coder import bytes_to_words
-from redux_tpu_torch.ops.decode import decode_blocks, products_fit_53
+from redux_tpu_torch.ops.coder import bytes_to_words, products_fit_53
+from redux_tpu_torch.ops.decode import decode_blocks, decode_blocks_plain
 from redux_tpu_torch.params import Parameters
 from torch_kernel_emulation import (NODES, div53, div53_int, fenwick_add, fenwick_tree,
                                     renorm)
@@ -171,59 +172,127 @@ def test_fenwick_descent_equals_the_row_search(cfg, delta):
     assert node == fenwick_tree(cdf)
 
 
-@pytest.mark.parametrize("cfg", [(8, 20, 22), (8, 15, 17)])
+def _multiples(rng, b, q_max, a_max):
+    """Pairs one below, at and one above a multiple of each divisor ``b``,
+    and one below the next: ``q * b - 1``, ``q * b``, ``q * b + 1`` and
+    ``q * b + b - 1`` for a random ``q`` in ``1 .. q_max`` (every 7th at
+    ``q_max``), dividends clipped below ``a_max``."""
+    q = (rng.random(b.size) * (q_max.astype(np.float64) + 1)).astype(np.uint64)
+    q = np.minimum(np.maximum(q, 1), q_max)
+    q[::7] = q_max[::7]
+    one = np.uint64(1)
+    return [np.minimum(a, a_max - one) for a in (q * b - one, q * b, q * b + one, q * b + b - one)]
+
+
+def _thread_route_pairs(p, rng, n):
+    """The quotients of K3's thread route at ``p``: ``(dividends,
+    divisors)`` pairs.  The value quotient ``((z+1)*count - 1) // range``
+    with ``z < 2**code_bits``, ``count`` up to ``freq_max + 254`` and a
+    renormalised ``range`` in ``2**(code_bits-2) + 1 .. 2**code_bits``
+    (the quotient below ``4 * count``); the narrowing quotients ``range *
+    c // count`` with ``c <= count``; random pairs of each kind, each
+    range's ends, and multiples (:func:`_multiples`) over the same
+    divisors and dividends."""
+    cb, c_max = p.code_bits, p.freq_max + 254
+    u = np.uint64
+    r_lo, r_hi = (1 << (cb - 2)) + 1, 1 << cb
+
+    def ends(lo, hi, size):
+        return np.concatenate([rng.integers(lo, hi + 1, size, dtype=u),
+                               lo + rng.integers(0, 64, size // 4, dtype=u),
+                               hi - rng.integers(0, 64, size // 4, dtype=u),
+                               np.array([lo, hi], u)])
+
+    pairs = []
+    # The value quotient.
+    rng_v = ends(r_lo, r_hi, n)
+    z, count = rng.permutation(ends(0, r_hi - 1, n)), rng.permutation(ends(257, c_max, n))
+    pairs.append(((z + u(1)) * count - u(1), rng_v))
+    a_max = u(r_hi) * u(c_max)  # every value dividend is below it
+    pairs += [(a, rng_v) for a in _multiples(rng, rng_v, (a_max - u(1)) // rng_v, a_max)]
+    # The narrowing quotients.
+    count = ends(1, c_max, n)
+    c = (rng.random(count.size) * (count.astype(np.float64) + 1)).astype(u)
+    c = np.minimum(c, count)
+    c[::5] = count[::5]
+    c[1::5] = 0
+    rng_n = rng.permutation(ends(r_lo, r_hi, n))
+    rng_n[::11] = r_hi
+    pairs.append((rng_n * c, count))
+    pairs += [(a, count) for a in _multiples(rng, count, np.full(count.size, r_hi, u),
+                                             u(r_hi) * count + u(1))]
+    return pairs
+
+
+@pytest.mark.parametrize("cfg", [(8, 20, 22), (8, 15, 17), (8, 21, 32), (8, 30, 32)])
 def test_reciprocal_quotient_is_exact(cfg):
-    """Random and boundary pairs (a = q*b - 1, q*b, q*b + b - 1) over every
-    divisor and dividend the decoder reaches at this configuration:
+    """``rxt::div53`` against integer division over the pairs K3's thread
+    route reaches at this configuration (:func:`_thread_route_pairs`), at
+    every parameter class: the reference CLI's (8,30,32) and the first set
+    past ``products_fit_53``'s edge, (8,21,32), have dividends past
+    ``2**53`` (up to ``2**62``), and the quotients stay below ``2**33``.  Where
+    ``products_fit_53``, also random and boundary pairs (a = q*b - 1, q*b,
+    q*b + b - 1) over every divisor and dividend the decoder reaches:
     divisors up to 2**code_bits (the range) and freq_max + 254 (the count),
     dividends below 2**code_bits * (freq_max + 255).  The encoders' (K2,
     K4, K5) quotients are the same function over a subset of these pairs:
     ``range * flo`` and ``range * fhi`` over ``count``, with
     ``range <= 2**code_bits`` and ``flo <= fhi <= count <= freq_max + 254``."""
     p = Parameters(*cfg)
-    assert products_fit_53(p)
-    rng = np.random.default_rng(cfg[2])
-    a_max = (1 << p.code_bits) * (p.freq_max + 255)
-    assert a_max <= 1 << 53
-    b_max = max(1 << p.code_bits, p.freq_max + 254)
+    rng = np.random.default_rng(cfg[2] + cfg[1])
     n = 200_000
-    b = np.concatenate([
-        rng.integers(1, b_max + 1, n, dtype=np.uint64),
-        rng.integers(1, 64, n // 4, dtype=np.uint64),
-        np.uint64(b_max) - rng.integers(0, 64, n // 4, dtype=np.uint64),
-        np.array([1, 2, 3, 1 << p.code_bits, p.freq_max, p.freq_max + 254], np.uint64),
-    ])
-    q_max = np.uint64(a_max - 1) // b
-    q = (rng.random(b.size) * (q_max.astype(np.float64) + 1)).astype(np.uint64)
-    q = np.minimum(np.maximum(q, 1), q_max)
-    q[::7] = q_max[::7]
-    for a in (q * b - np.uint64(1), q * b, q * b + b - np.uint64(1),
-              rng.integers(0, a_max, b.size, dtype=np.uint64)):
-        a = np.minimum(a, np.uint64(a_max - 1))
+    pairs = _thread_route_pairs(p, rng, n)
+    for a, b in pairs:
+        assert int(a.max()) < 1 << 63 and int((a // b).max()) < 1 << 33
+    if cfg[2] == 32:  # dividends past 2**53: 2**53.0001 at (8,21,32), 2**62 at (8,30,32)
+        assert not products_fit_53(p) and max(int(a.max()) for a, _ in pairs) > 1 << 53
+    if products_fit_53(p):
+        a_max = (1 << p.code_bits) * (p.freq_max + 255)
+        assert a_max <= 1 << 53
+        b_max = max(1 << p.code_bits, p.freq_max + 254)
+        b = np.concatenate([
+            rng.integers(1, b_max + 1, n, dtype=np.uint64),
+            rng.integers(1, 64, n // 4, dtype=np.uint64),
+            np.uint64(b_max) - rng.integers(0, 64, n // 4, dtype=np.uint64),
+            np.array([1, 2, 3, 1 << p.code_bits, p.freq_max, p.freq_max + 254], np.uint64),
+        ])
+        q_max = np.uint64(a_max - 1) // b
+        pairs += [(a, b) for a in _multiples(rng, b, q_max, np.uint64(a_max))]
+        pairs.append((rng.integers(0, a_max, b.size, dtype=np.uint64), b))
+    for a, b in pairs:
         np.testing.assert_array_equal(div53(a, b), a // b)
 
 
 def test_products_fit_53_routes_the_instantiations(monkeypatch):
-    """The wrapper's 53-bit test: tpu_wide and tpu32 take the reciprocal
-    instantiation, the reference CLI's (8,30,32) the u64 one; the flag is
-    what decode_blocks passes to the kernel (on the thread route, the one
-    with two instantiations: the card's warp route made empty here)."""
+    """K3 has one instantiation: ``decode_blocks`` passes
+    ``rxt_decode_blocks`` no instantiation flag, so its thread route takes
+    the same arguments, in the same places, at tpu_wide, tpu32, the first
+    set past the 53-bit edge and the reference CLI's (8,30,32) (the card's
+    warp route made empty here).  K2 keeps two: ``products_fit_53`` still
+    picks ``encode_blocks``' instantiation, reciprocal quotients (flag 1)
+    up to the edge and u64 divisions (flag 0) past it."""
     from redux_tpu_torch import _build
     from redux_tpu_torch.ops import decode as dec
+    from redux_tpu_torch.ops import encode as enc
 
     assert products_fit_53(Parameters.tpu_wide()) and products_fit_53(Parameters.tpu32())
     assert not products_fit_53(Parameters.default())
     # The edge: 32 + bit_length(2**20 - 1 + 254) = 53, 32 + bit_length(2**21 - 1 + 254) = 54.
     assert products_fit_53(Parameters(8, 20, 32)) and not products_fit_53(Parameters(8, 21, 32))
 
-    seen = []
+    seen = {"rxt_decode_blocks": [], "rxt_encode_blocks": []}
 
     class FakeLib:
         def rxt_decode_blocks(self, *args):
-            seen.append(args)
+            seen["rxt_decode_blocks"].append(args)
             return 0
 
-    monkeypatch.setattr(dec, "kernel_device", lambda dev: True)
+        def rxt_encode_blocks(self, *args):
+            seen["rxt_encode_blocks"].append(args)
+            return 0
+
+    for mod in (dec, enc):
+        monkeypatch.setattr(mod, "kernel_device", lambda dev: True)
     monkeypatch.setattr(dec, "warp_route_max", lambda dev: 0)
     monkeypatch.setattr(_build, "card_launches", type(_build.card_launches)())
     monkeypatch.setattr(_build, "route_blocks", type(_build.route_blocks)())
@@ -231,18 +300,27 @@ def test_products_fit_53_routes_the_instantiations(monkeypatch):
     monkeypatch.setattr(_build, "stream_of", lambda dev: 0)
     words = torch.zeros(2, 4, dtype=torch.int32)
     lens = torch.ones(2, dtype=torch.int32)
-    for params, fits in ((Parameters.tpu_wide(), 1), (Parameters.tpu32(), 1),
-                         (Parameters.default(), 0)):
+    lo = torch.zeros(2, 8, dtype=torch.int32)
+    n_args = len(_build.SIGNATURES["rxt_decode_blocks"])
+    for params in (Parameters.tpu_wide(), Parameters.tpu32(), Parameters(8, 21, 32),
+                   Parameters.default()):
         ic = torch.from_numpy(uniform_init_cum(RefParameters(params.symbol_bits, params.freq_bits,
                                                              params.code_bits)).astype(np.int32))
         decode_blocks(words, lens, ic, params, 8, 16)
-        assert seen[-1][10] == fits and seen[-1][11] == 0, params
+        args = seen["rxt_decode_blocks"][-1]
+        assert len(args) == n_args == 13, params
+        # ..., B, W, k, delta, freq_max, code_bits, warp, device, stream
+        assert args[4:] == (2, 4, 8, 16, params.freq_max, params.code_bits, 0, 0, 0), params
+        enc.encode_blocks(lo, lo, lens, 257, params, 4, 16)
+        assert seen["rxt_encode_blocks"][-1][13] == int(products_fit_53(params)), params
+    assert dict(_build.route_blocks) == {("thread", 0): 8}
 
 
 def _decode_block_emulated(words, n_sym, ic, p, delta):
-    """numpy/Python emulation of one thread of ``csrc/decode.cu`` (the
-    reciprocal instantiation): Fenwick descent, ``freq(sym)``, reciprocal
-    quotients, the update after the narrowing with the pre-update count."""
+    """numpy/Python emulation of one thread of ``csrc/decode.cu``'s thread
+    route: Fenwick descent, ``freq(sym)``, reciprocal quotients at every
+    parameter set, the update after the narrowing with the pre-update
+    count."""
     cb, cmax = p.code_bits, p.code_max
     bits = "".join(f"{int(w) & 0xFFFFFFFF:032b}" for w in words)
     pos_bits = 0
@@ -269,7 +347,7 @@ def _decode_block_emulated(words, n_sym, ic, p, delta):
         if count < p.freq_max:
             fenwick_add(node, sym, delta)
             count += delta
-        out.append(sym)
+        out.append(sym & 0xFF)  # a byte, as the kernel stores it (256 on corrupt streams)
     return bytes(out)
 
 
@@ -288,6 +366,55 @@ def test_kernel_algorithm_decodes_reference_streams(cfg, delta):
     for i, b in enumerate(blocks):
         got = _decode_block_emulated(words[i].numpy(), len(b), ic, p, delta)
         assert got == b and got == plain[i, : len(b)].tobytes(), f"block {i}"
+
+
+def _freezing_row(rp, delta: int, at: int) -> np.ndarray:
+    """A warm-start row from a seeded histogram whose total reaches
+    ``freq_max`` at its ``at``-th update, overshooting it by ``delta // 2 +
+    1``: the largest counts, and dividends, the decoder meets."""
+    off = delta // 2 + 1
+    head = rp.freq_max - at * delta + off - rp.symbol_count
+    w = np.random.default_rng(rp.freq_bits).integers(1, 100, rp.symbol_count).astype(np.float64)
+    extra = np.floor(w / w.sum() * head).astype(np.int64)
+    extra[0] += head - int(extra.sum())
+    ic = prior_init_cum(extra, rp)
+    assert ic[-1] + at * delta == rp.freq_max + off
+    return ic
+
+
+@pytest.mark.parametrize("cfg", [(8, 21, 32), (8, 30, 32)])
+def test_kernel_algorithm_past_the_53_bit_edge(cfg):
+    """Where ``products_fit_53`` is false and the dividends reach
+    ``2**62``, the emulated thread, on reciprocal quotients as at every
+    parameter set, decodes the oracle's streams over a row whose total
+    reaches freq_max mid-block, equal to the plain version (exact integer
+    division); and on the same words with bits flipped, decoded to ``k``
+    symbols a block, it still equals the plain version: a corrupt stream's
+    ``z`` bears no relation to the interval, so the value quotient can pass
+    ``count``, where both clamp it alike."""
+    rp, p = RefParameters(*cfg), Parameters(*cfg)
+    delta, k = 16, 900
+    ic = _freezing_row(rp, delta, 600).astype(np.int32)
+    ic_t = torch.from_numpy(ic)
+    blocks = [b for b in _mixed(23, k) if b]
+    streams = [oracle.compress_block(b, rp, ic.astype(np.int64), delta) for b in blocks]
+    words = _words(streams, 2)
+    lens = torch.tensor([len(b) for b in blocks], dtype=torch.int32)
+    plain = decode_blocks(words, lens, ic_t, p, k, delta).numpy()
+    for i, b in enumerate(blocks):
+        got = _decode_block_emulated(words[i].numpy(), len(b), ic, p, delta)
+        assert got == b and got == plain[i, : len(b)].tobytes(), f"block {i}"
+    rng = np.random.default_rng(cfg[1])
+    bad = words.numpy().view(np.uint32).copy()
+    for i, st in enumerate(streams):
+        n_words = (len(st) + 3) // 4
+        for w in [0, *rng.integers(0, n_words, 3).tolist()]:
+            bad[i, w] ^= np.uint32(1 << int(rng.integers(0, 32)))
+    bad_t = torch.from_numpy(bad.view(np.int32))
+    plain = decode_blocks_plain(bad_t, torch.full_like(lens, k), ic_t, p, k, delta).numpy()
+    for i in range(len(blocks)):
+        got = _decode_block_emulated(bad[i], k, ic, p, delta)
+        assert got == plain[i].tobytes(), f"corrupt block {i}"
 
 
 def test_decoder_wrapper_checks():

@@ -21,8 +21,9 @@ LANES = np.arange(32)
 
 
 def div53(a, b):
-    """``rxt::div53`` over uint64 arrays, for dividends below 2**53: the
-    truncated product with the rounded reciprocal, corrected by one."""
+    """``rxt::div53`` over uint64 arrays, for dividends below 2**63 and
+    quotients below 2**40: the truncated product with the rounded
+    reciprocal, corrected by one."""
     q = (a.astype(np.float64) * (1.0 / b.astype(np.float64))).astype(np.uint64)
     qb = q * b
     over = qb > a
