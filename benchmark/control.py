@@ -9,7 +9,8 @@ the split's products stay under 2**50, where a float64 quotient is exact.)
 runs the cell once a seed (:func:`benchmark.run.run_cell`, untraced, a
 window of ``S`` seconds) with ``api.encode`` replaced by the reference's
 archive of the file (:func:`benchmark.reference.archives`, coded on card
-0) and ``api.decode`` by that archive's input, and prints one JSON line a seed:
+0, under the configuration's ``encode`` settings as the check reads
+them) and ``api.decode`` by that archive's input, and prints one JSON line a seed:
 ``correct`` and the check's numbers.  ``correct`` has to come out false.
 The benchmark's own runs do not run it.
 """
@@ -17,6 +18,7 @@ The benchmark's own runs do not run it.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -45,6 +47,7 @@ def control_run(manifest: Manifest, name: str, seed: int, seconds: float, device
     made = dict(zip(datas, reference.archives(datas, cfg, CONTROL_QUOTIENT, device, batch)))
     inputs = {id(a): d for d, a in made.items()}
 
+    @functools.wraps(api.encode)  # the program's keywords, for the run's check of them
     def encode(data, **kw):
         return made[data]
 

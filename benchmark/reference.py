@@ -41,7 +41,20 @@ LANE_QUANTUM = 1024
 class Config:
     """A configuration file's codec settings: parameters ``(symbol, freq,
     code)`` bits, the adaptation increment, the prior's budget, and the
-    rules that pick the block size and the prior from the input's size."""
+    rules that pick the block size and the prior from the input's size.
+
+    The file's optional ``encode`` object holds keyword settings of the
+    program's ``api.encode`` that define the deployment; the harness
+    passes them to every encode call.  Two of them change an archive's
+    bytes, and the reference follows the program's rule for each:
+    ``block_size``, one size for every input, with no auto-sizing; and
+    ``use_prior``, a prior always (true) or never (false), where absent
+    means from ``prior_min_bytes`` up.  Every other key selects a route
+    that leaves the archive's bytes as they are (a fused encoder writes
+    the same bytes as the model and the coder apart): the reference
+    ignores it, and the byte-for-byte ``header``, ``table`` and ``streams``
+    counts of :func:`compare_files` hold the route to that.
+    """
 
     def __init__(self, cfg: dict):
         self.s, self.f, self.c = (int(cfg[k]) for k in ("symbol_bits", "freq_bits", "code_bits"))
@@ -50,6 +63,14 @@ class Config:
         self.delta = int(cfg["delta"])
         self.prior_budget = int(cfg["prior_budget"])
         self.prior_min_bytes = int(cfg["prior_min_bytes"])
+        settings = cfg.get("encode", {})
+        self.fixed_block_size = settings.get("block_size")
+        self.use_prior = settings.get("use_prior")
+        if self.fixed_block_size is not None and (type(self.fixed_block_size) is not int
+                                                  or self.fixed_block_size < 1):
+            raise ValueError(f"encode block_size {self.fixed_block_size!r} is not a positive int")
+        if self.use_prior is not None and not isinstance(self.use_prior, bool):
+            raise ValueError(f"encode use_prior {self.use_prior!r} is not true or false")
         self.n_symbols = (1 << self.s) + 1
         self.freq_max = (1 << self.f) - 1
         self.quarter = 1 << (self.c - 2)
@@ -57,13 +78,21 @@ class Config:
         self.code_max = (1 << self.c) - 1
 
     def block_size(self, n: int) -> int:
-        """4 KiB, or for inputs of 2 MiB and more the size that lands the
-        block count just under a multiple of 1024 lanes (256-aligned, at
-        least 1024)."""
+        """The configuration's ``block_size``; else 4 KiB, or for inputs of
+        2 MiB and more the size that lands the block count just under a
+        multiple of 1024 lanes (256-aligned, at least 1024)."""
+        if self.fixed_block_size is not None:
+            return self.fixed_block_size
         if n < AUTO_MIN_BYTES:
             return DEFAULT_BLOCK_SIZE
         lanes = -(-(-(-n // DEFAULT_BLOCK_SIZE)) // LANE_QUANTUM) * LANE_QUANTUM
         return max(-(-(-(-n // lanes)) // 256) * 256, 1024)
+
+    def has_prior(self, n: int) -> bool:
+        """Whether an archive of ``n`` bytes carries a prior (where its
+        counts are not all 0): the configuration's ``use_prior``, else
+        from ``prior_min_bytes`` up."""
+        return n >= self.prior_min_bytes if self.use_prior is None else self.use_prior
 
 
 def block_lens(n: int, k: int) -> np.ndarray:
@@ -264,7 +293,7 @@ def expected(data: bytes, cfg: Config) -> dict:
     the header's fields, the prior, and the blocks' lengths and first row."""
     n = len(data)
     k = cfg.block_size(n)
-    extra = prior_extra(histogram(data), cfg) if n >= cfg.prior_min_bytes else None
+    extra = prior_extra(histogram(data), cfg) if cfg.has_prior(n) else None
     lens = block_lens(n, k)
     fields = dict(magic=MAGIC, version=2, flags=int(extra is not None), symbol_bits=cfg.s,
                   freq_bits=cfg.f, code_bits=cfg.c, delta=cfg.delta, reserved=0, block_size=k,

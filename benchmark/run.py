@@ -11,11 +11,15 @@ A run loads the program, makes the mix's files from the seed on card 0,
 warms up with one round trip of each file, then runs a closed loop of
 one caller for ``S`` seconds: each round trip ``redux_tpu_torch.api.encode``
 of a file, then ``api.decode`` of its archive, the files in the mix's
-order.  ``--trace 0`` runs the window under ``torch.profiler``'s CUDA
-activity alone, for the cards' busy time, and prints the end-to-end
-metrics; ``--trace 1`` runs it under CPU and CUDA activity, half the
-round trips with the program's ``_timings`` (:mod:`benchmark.trace`),
-and prints the per-layer ones.  Every run also prints, on standard
+order.  Every encode call, the warm-up's included, gets the
+configuration's parameters, ``delta`` and ``prior_budget``, and the
+keyword settings of its optional ``encode`` object (such as
+``{"block_size": 16384}`` or ``{"use_prior": false}``), checked before
+the first call (:func:`codec_kwargs`).  ``--trace 0`` runs the window
+under ``torch.profiler``'s CUDA activity alone, for the cards' busy
+time, and prints the end-to-end metrics; ``--trace 1`` runs it under
+CPU and CUDA activity, half the round trips with the program's
+``_timings`` (:mod:`benchmark.trace`), and prints the per-layer ones.  Every run also prints, on standard
 error, the plain calls' bytes and wall seconds.  Once the window has closed, a sample of its round trips drawn
 from the seed is held to the plain reference (:mod:`benchmark.reference`).
 
@@ -35,6 +39,7 @@ _T_IMPORT = time.perf_counter()
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
 import importlib.util  # noqa: E402
+import inspect  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -58,6 +63,9 @@ TRACE_MAX_ROUND_TRIPS = 200
 # more.
 SAMPLE_ROUND_TRIPS = 48
 SAMPLE_BLOCKS = 1024
+# api.encode's keywords that are the run's own: the input, the cards and
+# the recorder of a timed call.
+HARNESS_KEYWORDS = ("data", "device", "_timings")
 
 
 def process_age() -> float:
@@ -136,13 +144,32 @@ class Run:
 
 
 def codec_kwargs(config: dict) -> dict:
-    """``api.encode``'s settings of a configuration; the block size and the
-    prior's use are the program's defaults, which the reference holds to
-    the configuration's rules."""
+    """``api.encode``'s settings of a configuration: its parameters,
+    ``delta`` and the prior's budget, merged with the keyword settings of
+    its optional ``encode`` object, which define the deployment; the
+    reference honours those that change an archive's bytes
+    (:class:`benchmark.reference.Config`).  Without ``encode`` the block
+    size and the prior's use are the program's defaults.  SystemExit,
+    naming the key, where ``encode`` sets a keyword set here already, one
+    of :data:`HARNESS_KEYWORDS`, or one that ``api.encode`` does not take."""
+    from redux_tpu_torch import api
     from redux_tpu_torch.params import Parameters
 
-    return dict(params=Parameters(config["symbol_bits"], config["freq_bits"], config["code_bits"]),
-                delta=config["delta"], prior_budget=config["prior_budget"])
+    kw = dict(params=Parameters(config["symbol_bits"], config["freq_bits"], config["code_bits"]),
+              delta=config["delta"], prior_budget=config["prior_budget"])
+    settings = config.get("encode", {})
+    if not isinstance(settings, dict):
+        raise SystemExit(f"configuration {config.get('name')!r}: \"encode\" is not an object")
+    takes = {p.name for p in inspect.signature(api.encode).parameters.values()
+             if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)}
+    for key in settings:
+        if key in kw or key in HARNESS_KEYWORDS:
+            raise SystemExit(f"configuration {config.get('name')!r}: \"encode\" key {key!r} is "
+                             "the harness's to set")
+        if key not in takes:
+            raise SystemExit(f"configuration {config.get('name')!r}: \"encode\" key {key!r} is "
+                             "not a keyword of redux_tpu_torch.api.encode")
+    return {**kw, **settings}
 
 
 class Sampler:
@@ -179,6 +206,7 @@ def run_cell(manifest: Manifest, name: str, seed: int, seconds: float, traced: b
 
     cell = manifest.cell(name)
     config, mix = manifest.config(cell["config"]), manifest.mix(cell["traffic"])
+    kw, cfg = codec_kwargs(config), reference.Config(config)  # before any call
     chips = int(cell["chips"])
     if device is None:
         device = "cuda" if chips == 1 else data_parallel_mesh(n=chips)
@@ -189,7 +217,6 @@ def run_cell(manifest: Manifest, name: str, seed: int, seconds: float, traced: b
 
         _build.lib()
     run = Run(cell, config, mix, len(cards))
-    kw = codec_kwargs(config)
     files = gen.make_files(mix, seed, gen_device or (torch.device("cuda", 0) if cuda else "cpu"),
                            manifest.content)
     if cuda:
@@ -264,7 +291,6 @@ def run_cell(manifest: Manifest, name: str, seed: int, seconds: float, traced: b
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    cfg = reference.Config(config)
     rng = np.random.default_rng([seed & 0xFFFFFFFF, seed >> 32, 3])
     kept = sampler.items()
     items = [(files[j].data, [a for i, a, _ in kept if i == j], [o for i, _, o in kept if i == j])
@@ -308,7 +334,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     manifest = Manifest()
-    chips = int(manifest.cell(args.workload)["chips"])
+    cell = manifest.cell(args.workload)
+    codec_kwargs(manifest.config(cell["config"]))  # a bad ``encode`` key stops any machine here
+    chips = int(cell["chips"])
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"{args.workload} needs {chips} CUDA device(s); this machine has "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)

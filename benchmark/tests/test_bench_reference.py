@@ -121,13 +121,21 @@ def test_reference_archive_is_the_programs(name):
     assert reference.archives(datas, cfg, batch=3) == want
 
 
-@pytest.mark.parametrize("name", ["rxt-wide22", "rxt-ref30"])
-def test_control_is_rejected(tmp_path, name):
+@pytest.mark.parametrize("name, encode", [
+    pytest.param("rxt-wide22", None, id="rxt-wide22"),
+    pytest.param("rxt-ref30", None, id="rxt-ref30"),
+    pytest.param("rxt-wide22", {"block_size": 16384, "use_prior": False},
+                 id="rxt-wide22-encode-settings"),
+])
+def test_control_is_rejected(tmp_path, name, encode):
     """The control, a whole run with the reference coding one precision
     below the configuration's in the program's place, at a size a test
-    holds: ``correct`` comes out false, its streams differing."""
+    holds: ``correct`` comes out false, its streams differing; also where
+    the configuration carries ``encode`` settings, under which the control
+    builds its archives as the check reads them."""
     root = copy_benchmark(tmp_path, [{"name": "a", "bytes": 20_000, "content": "mixed"},
-                                     {"name": "b", "bytes": 5000, "content": "fax"}], config=name)
+                                     {"name": "b", "bytes": 5000, "content": "fax"}], config=name,
+                          encode=encode)
     r = control.control_run(run.Manifest(root), "tiny.files", 2**31 + 17, 0.01, device="cpu")
     assert r["correct"] is False and r["failed"] == 0
     assert r["check"]["streams"]["value"] > 0

@@ -7,8 +7,9 @@ passes a :class:`PhaseLog` as the program's ``_timings``, which puts a
 zero-length ``mark:<phase>`` range in the trace at each of the program's
 phase marks.  Plain calls run as in the untraced window: the device
 metrics (kernel and copy time) are read from them alone, since a timed
-call's marks wait for the cards.  Timed calls name the device's idle
-gaps by the phase the host was in.  An untraced window runs under the
+call's marks, though none waits for the cards, put host work between its
+launches and copies.  Timed calls name the device's idle gaps by the
+phase the host was in.  An untraced window runs under the
 profiler's CUDA activity alone, for the cards' busy time
 (:func:`card_busy_ns`).
 
