@@ -8,7 +8,8 @@ numpy, never JAX.
 
 ``encode(data)`` / ``decode(archive)`` run on the card by default
 (``device="cuda"``): the kernels K1 model values, K2 coder, K3 decoder, or
-K4, the fused model + coder, under ``REDUX_TPU_ENC_FUSED=1``, and the
+K4, the fused model + coder, under ``encode(data, fused=True)`` (or
+``REDUX_TPU_ENC_FUSED=1`` where ``fused`` is not given), and the
 staging kernels around them (``ops.staging``: S1 row gather, S2 payload
 splice, S3 crc32, S4 byte histogram): the data crosses the bus once each way (an input of
 several lane chunks twice on its way in), and ``decode`` holds two ranges

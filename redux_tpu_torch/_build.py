@@ -61,7 +61,7 @@ SIGNATURES = {
 _lib = None
 _lock = threading.Lock()
 card_launches: collections.Counter = collections.Counter()  # (kernel, device index) -> launches
-route_blocks: collections.Counter = collections.Counter()  # (K3 route, device index) -> blocks
+route_blocks: collections.Counter = collections.Counter()  # (route, card_key) -> blocks
 bus_bytes: collections.Counter = collections.Counter()  # "h2d" / "d2h" -> bytes over the bus
 
 
@@ -194,11 +194,20 @@ def count_launch(kernel: str, device: torch.device) -> None:
     card_launches[kernel, device.index or 0] += 1
 
 
+def card_key(device: torch.device):
+    """The key of ``device`` in :data:`route_blocks`: a CUDA device's index
+    (0 where it has none), else its type (``"cpu"``)."""
+    return device.index or 0 if device.type == "cuda" else device.type
+
+
 def count_blocks(route: str, device: torch.device, n: int) -> None:
-    """``n`` blocks decoded by K3's ``route`` (``"warp"`` or ``"thread"``)
-    on ``device`` into :data:`route_blocks`, which ``api``'s recorder
-    reads: K3's wrapper calls it beside its :func:`count_launch`."""
-    route_blocks[route, device.index or 0] += n
+    """``n`` blocks coded on ``device`` by ``route`` into
+    :data:`route_blocks`, which ``api``'s recorder reads: K3's wrapper
+    counts the blocks it decodes on its ``"warp"`` or ``"thread"`` route
+    beside its :func:`count_launch`, and ``ops.encode.encode_blocks_ranked``
+    the blocks it encodes with K4 (``"fused"``) or K1 -> K2 (``"split"``),
+    on a card or in the plain versions."""
+    route_blocks[route, card_key(device)] += n
 
 
 def count_bus(h2d: int = 0, d2h: int = 0) -> None:

@@ -15,6 +15,7 @@ import torch
 from . import _build
 
 RECORDED_CALLS = 4096  # the recorded calls kept, newest last: a traced window's and more
+ROUTES = ("warp", "thread", "fused", "split")  # K3's, then the encoder's (``_build.count_blocks``)
 _records: deque = deque(maxlen=RECORDED_CALLS)
 _call_ids = itertools.count()
 
@@ -32,9 +33,10 @@ def recorded_calls() -> list[dict]:
     ``d2h_by_card`` (the same bytes by the position in ``cards`` of the
     device each copy served: lists aligned with ``cards`` that sum to
     ``h2d`` and ``d2h``), ``blocks_by_card`` (the blocks of each position's
-    shares, from ``api._shares``), and ``warp_blocks`` and
-    ``thread_blocks`` (the blocks K3 decoded on each route on the call's
-    devices, ``_build.route_blocks`` over the call)."""
+    shares, from ``api._shares``), ``warp_blocks`` and ``thread_blocks``
+    (the blocks K3 decoded on each route on the call's devices) and
+    ``fused_blocks`` and ``split_blocks`` (the blocks encoded by K4 and by
+    K1 -> K2 there), each ``_build.route_blocks`` over the call."""
     return list(_records)
 
 
@@ -83,8 +85,9 @@ class _Recorder(_Unrecorded):
     ``torch.profiler`` stamps its host events with.  The bytes are what
     the copies count into ``_build.bus_bytes`` from the recorder's start
     until the call has its result and hands its record to
-    :func:`recorded_calls` (:meth:`done`), and so are the blocks K3
-    decodes a route on the call's devices (``_build.route_blocks``).
+    :func:`recorded_calls` (:meth:`done`), and so are the blocks coded a
+    route on the call's devices (``_build.route_blocks``: K3's two, the
+    encoder's two).
 
     The call names the entry of its device list that its next steps serve
     (:meth:`serve`, by position: a list that names one device twice has
@@ -97,7 +100,7 @@ class _Recorder(_Unrecorded):
     def __init__(self, timings: dict, kind: str, nbytes: int, cards: Sequence[torch.device]):
         self.tt, self.kind, self.bytes_in = timings, kind, nbytes
         self.cards = [str(d) for d in cards]
-        self.indices = {d.index or 0 for d in cards if d.type == "cuda"}
+        self.keys = {_build.card_key(d) for d in cards}
         self.now = ""  # the phase of the next marks
         self.spans = []
         self.entry = None  # the entry the next marks serve; None: the whole call
@@ -147,7 +150,7 @@ class _Recorder(_Unrecorded):
         self._settle()
         bus = {way: _build.bus_bytes[way] - self.bus0[way] for way in ("h2d", "d2h")}
         blocks = {f"{route}_blocks": sum(_build.route_blocks[route, i] - self.blocks0[route, i]
-                                         for i in self.indices) for route in ("warp", "thread")}
+                                         for i in self.keys) for route in ROUTES}
         _records.append(dict(id=next(_call_ids), kind=self.kind, bytes_in=self.bytes_in,
                              bytes_out=nbytes, cards=self.cards, spans=self.spans, **bus,
                              h2d_by_card=self.by_card["h2d"], d2h_by_card=self.by_card["d2h"],

@@ -62,7 +62,7 @@ from .errors import InvalidInputError, ReduxError
 from .models.dense import prior_init_cum, quantize_prior, uniform_init_cum
 from .ops.coder import max_block_words
 from .ops.decode import decode_blocks
-from .ops.encode import encode_blocks_ranked
+from .ops.encode import encode_blocks_ranked, fused_selected
 from .ops.staging import byte_histogram, combine_crcs, crc32_device, gather_rows, splice_payload
 from .params import Parameters
 
@@ -285,6 +285,7 @@ def encode(
     use_prior: Optional[bool] = None,
     prior_budget: int = DEFAULT_PRIOR_BUDGET,
     *,
+    fused: Optional[bool] = None,
     device: Devices = "cuda",
     _timings: Optional[dict] = None,
 ) -> bytes:
@@ -297,13 +298,22 @@ def encode(
     kernels; ``device="cpu"`` runs their plain versions; a sequence of
     devices splits the blocks over them (:func:`_shares`).
 
+    ``fused`` picks pass 2's encoder (:func:`ops.encode.fused_selected`):
+    True codes every share with K4, the fused model and coder, which holds
+    no model-value planes on the device, and raises
+    :class:`InvalidInputError` before any device work at parameters K4
+    does not take (such as (8,30,32)); False runs K1 -> K2; not given,
+    ``REDUX_TPU_ENC_FUSED`` picks at each call, as in the reference, with
+    K1 -> K2 at parameters K4 does not take.  The archive's bytes are the
+    same on either route.
+
     Each share's payload comes back straight to its offset in the
     returned ``bytes``; the header is written in front of it at the end.
 
     With ``_timings`` (a dict) the call is recorded (:func:`recorded_calls`)
     and ``_timings`` receives the host seconds of each phase, ``pass1``
     (each share's upload, histogram and crc, the prior), ``pass2`` (each
-    share's upload, K1 -> K2, the payload splice and its fetch) and
+    share's upload, K1 -> K2 or K4, the payload splice and its fetch) and
     ``header``, and of each part of a phase (``"pass2 stage"``; over
     several devices ``"pass2 stage@j"`` where the part serves the ``j``-th
     device's share), at each mark: no mark waits for a device.
@@ -320,6 +330,10 @@ def encode(
     # The parameters' own limits before the device's (the prior's total is
     # checked once pass 1 has counted the bytes).
     _check_config(params, int(uniform_init_cum(params)[-1]))
+    try:  # pass 2's encoder, once a call
+        fused = fused_selected(params, fused)
+    except ValueError as e:
+        raise InvalidInputError(str(e)) from None
     _require_cuda(*devs)
     n, k = len(data), block_size
     lens = _block_lens(n, k)
@@ -369,8 +383,8 @@ def encode(
         rec.done(len(archive))
         return archive
 
-    # Pass 2, a step at a time: K1 -> K2 on each share's blocks and the
-    # raw rule, queued on every device of the step before any wire
+    # Pass 2, a step at a time: K1 -> K2 (or K4) on each share's blocks and
+    # the raw rule, queued on every device of the step before any wire
     # length is read; then, share by share in block order, the payload
     # spliced on its device and fetched from there to its place after
     # the header, which the wire lengths and raw flags then fill.  A
@@ -388,7 +402,7 @@ def encode(
         blocks = (card.kept if len(card.own) == 1 else card.up.take()).view(sh.s1 - sh.s0, k)
         lens_t = _to_device(lens[sh.s0 : sh.s1], card.device)
         words, bl, ov = encode_blocks_ranked(blocks, lens_t, card.ic, params, n_words, delta,
-                                             ic_total)
+                                             ic_total, fused)
         # Stored raw: overflowed blocks and any block not smaller coded.
         raw = ov | (bl >= lens_t)
         card.coded = (blocks, words,
@@ -396,7 +410,7 @@ def encode(
         rec.mark("launch")
 
     def overlap(card: _Card, sh: _Share) -> None:
-        card.up.prefetch()  # the next share's host copy while K1 -> K2 run
+        card.up.prefetch()  # the next share's host copy while the coder runs
         card.fetch.drain()  # the previous share's payload into place, likewise
 
     with _Output(head_len + n, rec) as out:

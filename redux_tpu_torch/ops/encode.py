@@ -131,31 +131,43 @@ def encode_blocks_fused(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.
     return words, byte_lens, ovf
 
 
-def fused_selected(params: Parameters) -> bool:
-    """Whether :func:`encode_blocks_ranked` runs K4: ``REDUX_TPU_ENC_FUSED``
-    set to anything but ``"0"`` (read on every call, as the reference
-    reads it on every trace), for parameters that K4 takes."""
-    return os.environ.get("REDUX_TPU_ENC_FUSED", "0") != "0" and (
-        params.fits_u32 or params.fits_wide32)
+def fused_selected(params: Parameters, fused: bool | None = None) -> bool:
+    """Whether :func:`encode_blocks_ranked` runs K4.  ``fused`` where
+    given: True runs K4 and raises ValueError at parameters K4 does not
+    take (neither ``fits_u32`` nor ``fits_wide32``), False runs K1 -> K2.
+    Not given: ``REDUX_TPU_ENC_FUSED`` set to anything but ``"0"`` (read on
+    every call, as the reference reads it on every trace), for parameters
+    that K4 takes."""
+    takes = params.fits_u32 or params.fits_wide32
+    if fused is None:
+        return takes and os.environ.get("REDUX_TPU_ENC_FUSED", "0") != "0"
+    if fused and not takes:
+        raise ValueError("K4 takes only fits_u32 or fits_wide32 parameters")
+    return bool(fused)
 
 
 def encode_blocks_ranked(syms: torch.Tensor, lens: torch.Tensor, init_cum: torch.Tensor,
                          params: Parameters, n_words: int, delta: int = 1,
-                         init_total: int | None = None):
+                         init_total: int | None = None, fused: bool | None = None):
     """The production encode: K1 model values feed the K2 coder, or, when
-    :func:`fused_selected`, the fused K4 alone (the same bytes).
+    :func:`fused_selected` (``params``, ``fused``), the fused K4 alone (the
+    same bytes).
 
     ``syms`` is ``(B, K)`` uint8, ``lens`` ``(B,)`` int32 (``lens <= K``;
     negative: a pad lane), ``init_cum`` the int32 initial row.  Returns
-    what :func:`encode_blocks` returns.  Parameters that K4 does not take
-    go through K1 -> K2 whatever the variable says, as in the reference.
-    ``init_total`` is the row's last entry where the caller holds it on
-    the host; without it K2's total is read from ``init_cum``, which on a
-    card waits for the work queued before.
+    what :func:`encode_blocks` returns.  Without ``fused``, parameters that
+    K4 does not take go through K1 -> K2 whatever the variable says, as in
+    the reference.  ``init_total`` is the row's last entry where the caller
+    holds it on the host; without it K2's total is read from ``init_cum``,
+    which on a card waits for the work queued before.  The ``B`` blocks
+    count into ``_build.route_blocks`` as ``"fused"`` or ``"split"``.
     """
-    if fused_selected(params):
-        return encode_blocks_fused(syms, lens, init_cum, params, n_words, delta)
-    if init_total is None:
-        init_total = int(init_cum[-1])
-    lo, hi = model_lohi(syms, lens, init_cum, params, delta)
-    return encode_blocks(lo, hi, lens, init_total, params, n_words, delta)
+    if fused_selected(params, fused):
+        route, out = "fused", encode_blocks_fused(syms, lens, init_cum, params, n_words, delta)
+    else:
+        if init_total is None:
+            init_total = int(init_cum[-1])
+        lo, hi = model_lohi(syms, lens, init_cum, params, delta)
+        route, out = "split", encode_blocks(lo, hi, lens, init_total, params, n_words, delta)
+    _build.count_blocks(route, syms.device, syms.shape[0])
+    return out

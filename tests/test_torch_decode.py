@@ -313,7 +313,7 @@ def test_products_fit_53_routes_the_instantiations(monkeypatch):
         assert args[4:] == (2, 4, 8, 16, params.freq_max, params.code_bits, 0, 0, 0), params
         enc.encode_blocks(lo, lo, lens, 257, params, 4, 16)
         assert seen["rxt_encode_blocks"][-1][13] == int(products_fit_53(params)), params
-    assert dict(_build.route_blocks) == {("thread", 0): 8}
+    assert dict(_build.route_blocks) == {("thread", "cpu"): 8}
 
 
 def _decode_block_emulated(words, n_sym, ic, p, delta):

@@ -167,7 +167,7 @@ def test_decode_blocks_routes_by_block_count(monkeypatch, sms):
         dec.decode_blocks(words, torch.ones(b, dtype=torch.int32), ic, p, 8, 16, _route=route)
         assert seen[-1][4] == b and seen[-1][10] == warp, (b, route)
     assert _build.card_launches == {("decode", 0): len(calls)}
-    assert _build.route_blocks == {("warp", 0): 2 + 2 * thr, ("thread", 0): thr + 6}
+    assert _build.route_blocks == {("warp", "cpu"): 2 + 2 * thr, ("thread", "cpu"): thr + 6}
     with pytest.raises(ValueError):
         dec.decode_blocks(words, torch.ones(5, dtype=torch.int32), ic, p, 8, 16, _route="lane")
 
